@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled with nvcc for Hopper (``sm_90a``) into
-one shared library with a plain C interface, at first use, under
+Every ``csrc/*.cu`` file is compiled with nvcc for Hopper (``sm_90a``), one
+nvcc process per source and all of them at once, and linked into one shared
+library with a plain C interface, at first use, under
 ``build/minlz_tpu_torch/`` at the root of the checkout, and loaded with
 ctypes.  Each C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises on anything but 0.  A missing nvcc or a failed compile
@@ -25,9 +26,9 @@ SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "minlz_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libminlz_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
-KERNELS = ("parse", "compact", "exec_range")
+KERNELS = ("parse", "compact", "exec_range", "greedy")
 _launches = dict.fromkeys(KERNELS, 0)
 _lock = threading.Lock()
 _lib = None
@@ -44,6 +45,8 @@ _SIGNATURES = {
     # max_span, comp, n_comp, out, stream
     "minlz_exec_ranges": [_P, ctypes.c_longlong, _P, _P, _P, ctypes.c_int,
                           ctypes.c_int, _P, ctypes.c_longlong, _P, _P],
+    # off, len, lanes, seg, take, tok_off, tok_len, is_rep, stream
+    "minlz_greedy": [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P],
 }
 
 
@@ -74,19 +77,45 @@ def build() -> tuple[float, str]:
     """Compile the kernels into LIB_PATH.  Returns (seconds, compiler
     output).  Raises RuntimeError with the compiler's output on failure."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    cu = [s for s in sources() if s.endswith(".cu")]
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    cmds = []
+    for src in sources():
+        if src.endswith(".cu"):
+            stem = os.path.splitext(os.path.basename(src))[0]
+            obj = os.path.join(BUILD_DIR, f"{stem}.{tag}.o")
+            cmds.append([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src])
+    objs = [c[-2] for c in cmds]
+    tmp = f"{LIB_PATH}.{tag}"
+    log = []
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-            f"{res.stdout}{res.stderr}"
-        )
-    os.replace(tmp, LIB_PATH)
-    return secs, res.stdout + res.stderr
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        failed = None
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate()
+            log.append(out)
+            if proc.returncode != 0 and failed is None:
+                failed = (cmd, proc.returncode, out)
+        if failed is None:
+            cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+            res = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+            log.append(res.stdout)
+            if res.returncode != 0:
+                failed = (cmd, res.returncode, res.stdout)
+        if failed is not None:
+            cmd, code, out = failed
+            raise RuntimeError(
+                f"nvcc failed ({code}): {' '.join(cmd)}\n{out}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for path in (*objs, tmp):
+            if os.path.exists(path):
+                os.remove(path)
+    return time.perf_counter() - t0, "".join(log)
 
 
 def load():

@@ -9,9 +9,8 @@ parse hints travel in the user-skippable chunk 0x88, payload
 
 from __future__ import annotations
 
-from minlz_tpu.minlz import CorruptError, put_uvarint, read_uvarint
-
 from .._device import resolve_device
+from ..minlz import CorruptError, put_uvarint, read_uvarint
 
 HINT_MAGIC = b"MZPH"
 HINT_VERSION = 2
@@ -26,11 +25,9 @@ WINDOW = 16384
 MAX_BLOCK = 8 << 20
 
 _TODO_V1 = ("parse hints v1 (no range clamp) are not decoded on the device "
-            "yet: ROADMAP.md, 'Next, in order', item 4 (v1 hints)")
-_TODO_EMIT = ("device token emission is not ported yet: ROADMAP.md, 'Next, "
-              "in order', item 5 (emit.py)")
+            "yet: ROADMAP.md, 'Next, in order', item 1 (v1 hints)")
 _TODO_MESH = ("the device mesh is not ported yet: ROADMAP.md, 'Next, in "
-              "order', item 6 (mesh via torch.distributed)")
+              "order', item 3 (mesh via torch.distributed)")
 
 
 def marshal_hints(seg_size: int, hints, rng: int = 0) -> bytes:
@@ -135,10 +132,52 @@ class DeviceCodec:
                 for block, hints in results]
 
     def encode_emit(self, data: bytes, level: int = 2):
-        raise NotImplementedError(_TODO_EMIT)
+        """Encode one block wholly on the device: match find -> greedy
+        parse -> byte-exact verify -> token emission (``ops/emit.py``); the
+        host only frames the header.  No short repeats are found, so the
+        ratio is worse than ``encode``'s.  Returns (block, hint_payload),
+        or None when the block is empty or does not compress."""
+        if len(data) == 0:
+            return None
+        return self.encode_batch_emit([data], level)[0]
 
     def encode_batch_emit(self, blocks, level: int = 2):
-        raise NotImplementedError(_TODO_EMIT)
+        """Encode many blocks wholly on the device, in one pass over a
+        [B, N] batch padded to one window-sized geometry.  Returns a list
+        of (block, hint_payload) | None entries, aligned with the input."""
+        import numpy as np
+        import torch
+
+        from . import emit
+
+        seg = self._seg_for(max(len(b) for b in blocks))
+        N = -(-max(max(len(b) for b in blocks), 1) // seg) * seg
+        N = -(-N // (2 * WINDOW)) * (2 * WINDOW)
+        arr = np.zeros((len(blocks), N), np.uint8)
+        for i, b in enumerate(blocks):
+            arr[i, : len(b)] = np.frombuffer(bytes(b), np.uint8)
+        # Emission needs at least one byte per block.
+        ns = [max(len(b), 1) for b in blocks]
+        out, lens = emit.encode_block_emit(
+            torch.from_numpy(arr).to(self.device), ns, seg, RANGE, level)
+        out = out.cpu().numpy()
+        lens = lens.cpu().numpy()
+        self.blocks_encoded += len(blocks)
+
+        results = []
+        for i, b in enumerate(blocks):
+            n = len(b)
+            nseg = -(-n // seg)
+            body = b"".join(
+                out[i, s, : lens[i, s]].tobytes() for s in range(nseg))
+            if n == 0 or len(body) >= n:
+                results.append(None)
+                continue
+            offs = np.concatenate([[0], np.cumsum(lens[i, :nseg])[:-1]])
+            hints = [(int(o), s * seg) for s, o in enumerate(offs)]
+            block = b"\x00" + put_uvarint(n) + body
+            results.append((block, marshal_hints(seg, hints, RANGE)))
+        return results
 
     def encode_batch_mesh(self, mesh, blocks, level: int = 2):
         raise NotImplementedError(_TODO_MESH)

@@ -4,9 +4,14 @@ The counterpart of ``minlz_tpu.ops.encode_kernel``'s device path.  The JAX
 package writes it in plain jnp with no Pallas kernel, so this port is plain
 torch ops: ``torch.sort`` takes the place of ``lax.sort``, the vmapped block
 batch is a tensor dimension with a per-block valid length, and the uint32
-arithmetic that wraps in JAX is done in int64 and masked to 32 bits.  The
-host C++ ``parse_serialize`` (``minlz_tpu.native.codec``) turns the match
-proposals into the block body and the parse hints.
+arithmetic that wraps in JAX is done in int64 and masked to 32 bits.
+
+Two serializers turn the match proposals into the block body and the parse
+hints, and the caller names the one it wants: ``serializer="native"`` (the
+default) is the host C++ ``parse_serialize`` of ``native.codec`` and raises
+when the native library did not build; ``serializer="greedy"`` is the device
+greedy parse (``greedy.greedy_parse_compact``) followed by the host Python
+``serialize_block``.  Nothing switches from one to the other by itself.
 """
 
 from __future__ import annotations
@@ -14,10 +19,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from minlz_tpu.minlz import put_uvarint
-from minlz_tpu.native.codec import get_codec
-
 from .._device import resolve_device
+from ..minlz import put_uvarint
+from ..native.build import build_error
+from ..native.codec import get_codec
+from ..oracle import encode as oenc
 from .device_codec import SEG, WINDOW
 
 _HASH_BITS = 17
@@ -217,6 +223,127 @@ def find_matches_dyn(data, n, seg: int = SEG, rng: int = 0, level: int = 2):
     return best_dist, best_len
 
 
+def serialize_block(data: bytes, pos, off, ln, is_rep, count,
+                    seg: int = SEG):
+    """Serialize a whole block from a compacted global op list.
+
+    Returns (body_bytes, hints) with hints = [(comp_off, out_off), ...] per
+    segment.  Ops must be ascending by position and never cross segment
+    boundaries (guaranteed by find_matches_dyn's length cap).
+    """
+    n = len(data)
+    nseg = -(-n // seg)
+    body = bytearray()
+    hints = []
+    i = 0
+    count = int(count)
+    for si in range(nseg):
+        s0 = si * seg
+        s1 = min(s0 + seg, n)
+        hints.append((len(body), s0))
+        lit_start = s0
+        rep = -1
+        while i < count and pos[i] < s1:
+            p = int(pos[i])
+            o = int(off[i])
+            l = int(ln[i])
+            # Device lengths are proposals (coarse levels are hash-verified
+            # only): confirm byte-exactly, truncating at first mismatch.
+            lv = 0
+            while lv < l and data[p + lv] == data[p - o + lv]:
+                lv += 1
+            l = lv
+            if l < 4:
+                i += 1
+                continue
+            lits = data[lit_start:p]
+            if is_rep[i] and o == rep:
+                if lits:
+                    oenc.emit_literals(body, lits)
+                oenc.emit_repeat(body, l)
+            else:
+                can_fuse = (
+                    lits
+                    and o >= 64
+                    and o != rep
+                    and (len(lits) <= 3 or (o <= 65599 and len(lits) <= 4))
+                )
+                if can_fuse:
+                    if o <= 65599:
+                        oenc.emit_fused2(body, lits, o, l)
+                    else:
+                        oenc.emit_copy3(body, o, l, lits)
+                else:
+                    if lits:
+                        oenc.emit_literals(body, lits)
+                    if o == rep:
+                        oenc.emit_repeat(body, l)
+                    elif o <= 1024:
+                        oenc.emit_copy1(body, o, l)
+                    elif o <= 65599:
+                        oenc.emit_copy2(body, o, l)
+                    else:
+                        oenc.emit_copy3(body, o, l)
+                rep = o
+            lit_start = p + l
+            i += 1
+        if lit_start < s1:
+            oenc.emit_literals(body, data[lit_start:s1])
+    return bytes(body), hints
+
+
+def serialize_segment(src: bytes, take, tok_off, tok_len, is_rep) -> bytes:
+    """Emit the MinLZ token stream for one segment from parse arrays
+    (numpy, one entry per position).
+
+    Token choice mirrors the upstream greedy encoder's decision tree
+    (internal/reference/encoder.go:174-221): fused literals when possible,
+    repeat when the offset matches, otherwise the smallest copy op.
+    """
+    dst = bytearray()
+    n = len(src)
+    rows = np.nonzero(take[:n])[0]
+    lit_start = 0
+    rep = -1
+    for p in rows:
+        p = int(p)
+        off = int(tok_off[p])
+        ln = int(tok_len[p])
+        lits = src[lit_start:p]
+        if is_rep[p]:
+            if lits:
+                oenc.emit_literals(dst, lits)
+            oenc.emit_repeat(dst, ln)
+        else:
+            can_fuse = (
+                lits
+                and off >= 64
+                and off != rep
+                and (len(lits) <= 3 or (off <= 65599 and len(lits) <= 4))
+            )
+            if can_fuse:
+                if off <= 65599:
+                    oenc.emit_fused2(dst, lits, off, ln)
+                else:
+                    oenc.emit_copy3(dst, off, ln, lits)
+            else:
+                if lits:
+                    oenc.emit_literals(dst, lits)
+                if off == rep:
+                    oenc.emit_repeat(dst, ln)
+                elif off <= 1024:
+                    oenc.emit_copy1(dst, off, ln)
+                elif off <= 65599:
+                    oenc.emit_copy2(dst, off, ln)
+                else:
+                    oenc.emit_copy3(dst, off, ln)
+            rep = off
+        lit_start = p + ln
+    if lit_start < n:
+        oenc.emit_literals(dst, src[lit_start:])
+    return bytes(dst)
+
+
 def _find_matches_batch(data_u8, ns, seg: int = SEG, rng: int = 0,
                         level: int = 2):
     """Match distances for [B, N] blocks with per-block valid lengths, in
@@ -237,8 +364,10 @@ def _native_codec():
     codec = get_codec()
     if codec is None:
         raise RuntimeError(
-            "the native codec (minlz_tpu.native) is unavailable: the device "
-            "encode needs its parse_serialize"
+            "the native codec (minlz_tpu_torch.native) did not build "
+            f"({build_error()}): serializer=\"native\" needs its "
+            "parse_serialize; ask for serializer=\"greedy\" to serialize "
+            "without it"
         )
     return codec
 
@@ -278,20 +407,39 @@ def encode_blocks_device(blocks, seg: int = SEG, rng: int = 0,
 
 
 def encode_block_device(data: bytes, seg: int = SEG, rng: int = 0,
-                        level: int = 2, device="cuda"):
+                        level: int = 2, device="cuda",
+                        serializer: str = "native"):
     """Encode one block; the sort geometry is sized from its segments, as
-    in the JAX ``encode_block_device``.  Returns (block_bytes, hints), or
-    (None, None) when the data does not compress."""
+    in the JAX ``encode_block_device``.  ``serializer`` is "native" (host
+    C++ parse_serialize; raises if the native library did not build) or
+    "greedy" (device greedy parse, then ``serialize_block``).  Returns
+    (block_bytes, hints), or (None, None) when the data does not
+    compress."""
+    if serializer not in ("native", "greedy"):
+        raise ValueError(f"unknown serializer {serializer!r}")
     n = len(data)
     if n == 0:
         return b"\x00", []
     dev = resolve_device(device)
-    codec = _native_codec()
+    codec = _native_codec() if serializer == "native" else None
     nseg = -(-n // seg)
     N = _size_class(nseg * seg)
     flat = np.zeros((1, N), np.uint8)
     flat[0, :n] = np.frombuffer(data, np.uint8)
-    dist = _find_matches_batch(
-        torch.from_numpy(flat).to(dev), [n], seg, rng, level
-    ).cpu().numpy()[0, :n]
-    return _serialize(codec, data, dist, seg, rng, level)
+    dist, length = find_matches_dyn(
+        torch.from_numpy(flat).to(dev), [n], seg, rng, level)
+    if codec is not None:
+        dist = dist.to(torch.int32).cpu().numpy()[0, :n]
+        return _serialize(codec, data, dist, seg, rng, level)
+    from .greedy import greedy_parse_compact
+
+    nrows = N // seg
+    pos, off, ln, isrep, count = greedy_parse_compact(
+        dist.to(torch.int32).reshape(nrows, seg),
+        length.to(torch.int32).reshape(nrows, seg), seg)
+    body, hints = serialize_block(
+        data, pos.cpu().numpy(), off.cpu().numpy(), ln.cpu().numpy(),
+        isrep.cpu().numpy(), count, seg)
+    if len(body) >= n:
+        return None, None
+    return b"\x00" + put_uvarint(n) + body, hints

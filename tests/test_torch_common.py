@@ -1,0 +1,85 @@
+"""Shared inputs of the test_torch_* files: one numpy array, made from a
+seed, handed to the JAX function (jnp.asarray) and to the port
+(torch.from_numpy), so both sides see the same bytes.  Tolerance 0: every
+compared value is an integer."""
+
+import numpy as np
+import torch
+
+from minlz_tpu_torch.ops import encode_kernel as tek
+
+SEG = 4096
+WIN2 = 2 * tek.WINDOW
+
+
+def both(*arrays):
+    """(jax arrays, torch tensors) of the same numpy arrays."""
+    import jax.numpy as jnp  # the card-only tests run without jax
+
+    return ([jnp.asarray(a) for a in arrays],
+            [torch.from_numpy(np.array(a)) for a in arrays])
+
+
+def pad_block(data: bytes, seg: int = SEG):
+    """[1, N] int32 zero-padded block at the emit geometry, and its length."""
+    n = len(data)
+    N = -(-max(n, 1) // seg) * seg
+    N = -(-N // WIN2) * WIN2
+    flat = np.zeros((1, N), np.int32)
+    flat[0, :n] = np.frombuffer(data, np.uint8)
+    return flat, n
+
+
+def real_proposals(data: bytes, seg: int = SEG, rng: int = 0, level: int = 2):
+    """Match proposals of a real block, as [nseg, seg] int32 arrays."""
+    flat, n = pad_block(data, seg)
+    dist, length = tek.find_matches_dyn(torch.from_numpy(flat), [n], seg,
+                                        rng, level)
+    return (dist.numpy().astype(np.int32).reshape(-1, seg),
+            length.numpy().astype(np.int32).reshape(-1, seg))
+
+
+def random_proposals(seed: int, lanes: int, seg: int, hostile: bool):
+    """Random proposals.  Tame: short lengths around the take threshold.
+    Hostile: any int32, with negative and huge lengths and offsets, and
+    runs of equal offsets so that is_rep fires."""
+    rng = np.random.default_rng(seed)
+    if not hostile:
+        off = rng.integers(0, 6, (lanes, seg)).astype(np.int32)
+        length = rng.integers(0, 12, (lanes, seg)).astype(np.int32)
+        return off, length
+    info = np.iinfo(np.int32)
+    off = rng.integers(info.min, info.max, (lanes, seg), dtype=np.int64)
+    length = rng.integers(info.min, info.max, (lanes, seg), dtype=np.int64)
+    small = rng.random((lanes, seg)) < 0.7
+    length = np.where(small, rng.integers(-3, 40, (lanes, seg)), length)
+    off = np.where(rng.random((lanes, seg)) < 0.5,
+                   rng.integers(-1, 3, (lanes, seg)), off)
+    length[:, -1] = info.max
+    length[0, 0] = info.max
+    length[1, 0] = info.min
+    return off.astype(np.int32), length.astype(np.int32)
+
+
+def greedy_reference(off, length):
+    """The greedy state machine, position by position, in Python ints."""
+    lanes, seg = off.shape
+    out = np.zeros((4, lanes, seg), np.int32)
+    for b in range(lanes):
+        skip, rep = 0, -1
+        for r in range(seg):
+            o, l = int(off[b, r]), int(length[b, r])
+            if skip == 0 and l >= 4:
+                out[:, b, r] = (1, o, l, int(o == rep))
+                skip, rep = l - 1, o
+            else:
+                skip = max(skip - 1, 0)
+    return out
+
+
+def test_helpers_hand_over_the_same_values():
+    off, length = random_proposals(0, 4, 64, hostile=True)
+    (joff, jlen), (toff, tlen) = both(off, length)
+    np.testing.assert_array_equal(np.asarray(joff), toff.numpy())
+    np.testing.assert_array_equal(np.asarray(jlen), tlen.numpy())
+    assert length.min() < 0 and length.max() == np.iinfo(np.int32).max

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from minlz_tpu.oracle import decode as odec
+from minlz_tpu_torch.oracle import decode as odec
 from minlz_tpu_torch.ops import exec_chain as tec
 from minlz_tpu_torch.ops.device_codec import RANGE, split_body
 from minlz_tpu_torch.ops.encode_kernel import encode_blocks_device
@@ -64,3 +64,28 @@ def test_exec_kernel_matches_plain(stages):
                                     RANGE, "cuda")
     torch.cuda.synchronize()
     assert got == blocks
+
+
+def test_greedy_kernel_matches_plain():
+    """Real proposals and hostile int32, all four outputs, tolerance 0."""
+    from minlz_tpu_torch.ops import greedy as tg
+
+    from test_torch_common import random_proposals, real_proposals
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    with open(__file__, "rb") as f:
+        text = f.read() * 40
+    for off, length in (real_proposals(text[: 128 << 10]),
+                        random_proposals(4, 300, 1000, hostile=True),
+                        random_proposals(5, 33, 4096, hostile=False)):
+        seg = off.shape[1]
+        toff = torch.from_numpy(off).cuda()
+        tlen = torch.from_numpy(length).cuda()
+        kern = tg.greedy_parse(toff, tlen, seg)
+        torch.cuda.synchronize()
+        plain = tg.greedy_parse_plain(torch.from_numpy(off),
+                                      torch.from_numpy(length), seg)
+        for k, p in zip(kern, plain):
+            assert torch.equal(k.cpu(), p)
+        assert int(kern[0].sum()) > 0

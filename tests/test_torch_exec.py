@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from minlz_tpu.minlz import CorruptError
+from minlz_tpu_torch.minlz import CorruptError
 from minlz_tpu.oracle import decode as odec
 from minlz_tpu.oracle import encode as oenc
 from minlz_tpu_torch.ops import exec_chain as tec

@@ -35,7 +35,7 @@ def test_wire_helpers_match_jax():
 
 
 def test_bad_hints_are_corrupt():
-    from minlz_tpu.minlz import CorruptError
+    from minlz_tpu_torch.minlz import CorruptError
 
     good = tdc.marshal_hints(4096, [(0, 0), (10, 4096)], tdc.RANGE)
     for bad in (b"XXXX\x02", good[:4], good[:-1]):
@@ -45,9 +45,9 @@ def test_bad_hints_are_corrupt():
 
 @pytest.fixture(scope="module")
 def corpus():
-    import bench
+    from minlz_tpu_torch.corpus import make_corpus
 
-    return bench.make_corpus(2 << 20)[: 2 << 20]
+    return make_corpus(2 << 20)
 
 
 @pytest.fixture(scope="module")
@@ -98,32 +98,127 @@ def test_partial_reads_decode_on_device(port_stream, corpus):
 
 
 def test_device_failure_raises(port_stream, monkeypatch):
-    """The parent Reader would warn and decode on the host; the port's
-    Reader fails instead, in the batched drain and in the per-block path."""
+    """The JAX package's Reader would warn and decode on the host; the
+    port's Reader fails instead, in the batched drain and in the per-block
+    path."""
     def boom(*args, **kwargs):
         raise RuntimeError("injected device failure")
 
     monkeypatch.setattr(tdc.DeviceCodec, "decode_batch", boom)
-    with pytest.raises(RuntimeWarning, match="injected device failure"):
+    with pytest.raises(RuntimeError, match="injected device failure"):
         Reader(io.BytesIO(port_stream), device="cpu").readall()
-    with pytest.raises(RuntimeWarning, match="injected device failure"):
+    with pytest.raises(RuntimeError, match="injected device failure"):
         Reader(io.BytesIO(port_stream), device="cpu").read(10)
+
+
+def test_corrupt_hints_decode_on_the_host(port_stream, corpus, monkeypatch):
+    """Hints are advisory: a CorruptError from the device codec leaves the
+    block to the host decoder, in both paths."""
+    from minlz_tpu_torch.minlz import CorruptError
+
+    def corrupt(*args, **kwargs):
+        raise CorruptError("injected corrupt hints")
+
+    monkeypatch.setattr(tdc.DeviceCodec, "decode_batch", corrupt)
+    r = Reader(io.BytesIO(port_stream), device="cpu")
+    assert r.readall() == corpus
+    assert r.codec.blocks_decoded == 0
+    assert Reader(io.BytesIO(port_stream), device="cpu").read(10) \
+        == corpus[:10]
 
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Writer(io.BytesIO(), device="cpu", device_emit=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         Writer(io.BytesIO(), device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Writer(io.BytesIO(), device="cpu", search_table=object())
     dc = tdc.DeviceCodec("cpu")
-    for call in (lambda: dc.encode_emit(b"x"),
-                 lambda: dc.encode_batch_emit([b"x"]),
-                 lambda: dc.encode_batch_mesh(None, [b"x"])):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dc.encode_batch_mesh(None, [b"x"])
     v1 = tdc.marshal_hints(4096, [(0, 0)], 0)
     with pytest.raises(NotImplementedError, match="v1"):
         dc.decode(b"\x00" * 10, v1, 100)
+
+
+def test_host_only_reader_and_writer(corpus):
+    """device=None keeps every block on the host: no codec, no hints, and
+    the bytes of the JAX package's host Writer."""
+    data = corpus[: 300_000]
+    buf, jbuf = io.BytesIO(), io.BytesIO()
+    w = Writer(buf, device=None, block_size=BLOCK, concurrency=1)
+    with w:
+        w.write(data)
+    with JaxWriter(jbuf, block_size=BLOCK, concurrency=1) as jw:
+        jw.write(data)
+    assert w.codec is None
+    assert buf.getvalue() == jbuf.getvalue()
+    r = Reader(io.BytesIO(buf.getvalue()), device=None)
+    assert r.codec is None and r.readall() == data
+
+
+EMIT_BLOCK = 128 << 10
+EMIT_BYTES = 4 * EMIT_BLOCK + 5000
+
+
+@pytest.fixture(scope="module")
+def emit_streams(corpus):
+    """The same bytes through both packages' Writer(device_emit=True)."""
+    data = corpus[-EMIT_BYTES:]
+    jbuf, buf = io.BytesIO(), io.BytesIO()
+    with JaxWriter(jbuf, device=True, device_emit=True,
+                   block_size=EMIT_BLOCK, concurrency=1) as jw:
+        jw.write(data)
+    w = Writer(buf, device="cpu", device_emit=True, block_size=EMIT_BLOCK,
+               concurrency=1)
+    with w:
+        w.write(data)
+    assert w.codec.blocks_encoded == 5
+    return data, jbuf.getvalue(), buf.getvalue()
+
+
+def test_emit_writer_bytes_match_jax_writer(emit_streams):
+    data, jax_bytes, port_bytes = emit_streams
+    assert len(port_bytes) < len(data)
+    assert port_bytes == jax_bytes
+
+
+def test_emit_streams_interchange(emit_streams):
+    """Each package's Reader reads the other's device_emit stream."""
+    data, jax_bytes, port_bytes = emit_streams
+    r = Reader(io.BytesIO(jax_bytes), device="cpu")
+    assert r.readall() == data
+    assert r.codec.blocks_decoded > 0
+    assert Reader(io.BytesIO(port_bytes), device=None).readall() == data
+    assert HostReader(io.BytesIO(port_bytes)).readall() == data
+
+
+def test_emit_per_block_path_matches_batched(emit_streams):
+    """A custom encoder that declines sends every block through the
+    per-block encode_emit call; the stream is the batched one."""
+    data, _, port_bytes = emit_streams
+    buf = io.BytesIO()
+    with Writer(buf, device="cpu", device_emit=True, block_size=EMIT_BLOCK,
+                concurrency=1, custom_encoder=lambda src, level: None) as w:
+        w.write(data)
+    assert buf.getvalue() == port_bytes
+
+
+@pytest.mark.parametrize("stream", ["serializer", "emit"])
+def test_corrupt_crc_raises(stream, port_stream, emit_streams):
+    """One flipped CRC byte of the first data chunk: the port's Reader
+    raises on the device path and on the host path."""
+    from minlz_tpu_torch.minlz import (CHUNK_TYPE_MINLZ_COMPRESSED,
+                                       CorruptError)
+
+    good = port_stream if stream == "serializer" else emit_streams[2]
+    pos = 0
+    while good[pos] != CHUNK_TYPE_MINLZ_COMPRESSED:
+        pos += 4 + int.from_bytes(good[pos + 1 : pos + 4], "little")
+    bad = bytearray(good)
+    bad[pos + 4] ^= 0x40
+    for device in ("cpu", None):
+        with pytest.raises(CorruptError, match="CRC"):
+            Reader(io.BytesIO(bytes(bad)), device=device).readall()
 
 
 def test_cuda_without_gpu_raises():
