@@ -3,14 +3,18 @@
 Builds the port's native host library and its CUDA kernels from the sources
 in the checkout, holds each kernel against its plain torch version (on real
 batches and on mutated or hostile input), checks the match finder on the
-card against the CPU, and drives the port's two main paths at full width,
-each a 32 MiB stream through minlz_tpu_torch.stream.Writer and Reader: the
-serializer path (match finder on the card, native host serializer) and the
+card against the CPU, and drives the port's main paths at full width.
+Three are a 32 MiB stream through minlz_tpu_torch.stream.Writer and Reader:
+the serializer path (match finder on the card, native host serializer), the
 all-device path (Writer(device_emit=True): match find, greedy parse, verify
-and token emission on the card).  Then it times each phase.  It imports
-nothing of jax or of the JAX package.  Prints a JSON line of kernel results,
-then, as its last line, {"ok": true, "device": {...}}.  Any failure raises
-and exits non-zero.
+and token emission on the card) and the unclamped path (the serializer path
+without the encoder's range clamp, so that the Reader decodes every block on
+the whole-block road).  The fourth sends the clamped stream's blocks through
+decode_blocks_chained(executor="scheduled"), the append-only road.  One
+8 MiB block (16 KiB segments) goes through Writer and Reader and through
+decode_block_whole.  Then it times each phase.  It imports nothing of jax or
+of the JAX package.  Prints a JSON line of kernel results, then, as its last
+line, {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 
     python3 chip_smoke.py
 """
@@ -45,19 +49,33 @@ HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 
 KERNELS = {
-    # name: (source, the TPU kernel it replaces)
+    # name: (source, the TPU kernel it replaces, its launch count's name in
+    # _build.launch_counts(), the path whose run gives its "launches")
     "parse": ("minlz_tpu_torch/csrc/parse.cu",
-              "minlz_tpu/ops/pallas_decode.py:56"),
+              "minlz_tpu/ops/pallas_decode.py:56", "parse", "serializer"),
     "compact": ("minlz_tpu_torch/csrc/compact.cu",
-                "minlz_tpu/ops/exec_chain.py:394"),
+                "minlz_tpu/ops/exec_chain.py:394", "compact", "serializer"),
     "exec_range": ("minlz_tpu_torch/csrc/exec_range.cu",
-                   "minlz_tpu/ops/exec_chain.py:774"),
+                   "minlz_tpu/ops/exec_chain.py:774", "exec_range",
+                   "serializer"),
     "greedy": ("minlz_tpu_torch/csrc/greedy.cu",
-               "minlz_tpu/ops/pallas_encode.py:29"),
+               "minlz_tpu/ops/pallas_encode.py:29", "greedy", "device_emit"),
+    "exec_block": ("minlz_tpu_torch/csrc/exec_block.cu",
+                   "minlz_tpu/ops/pallas_decode.py:137", "exec_block",
+                   "unclamped"),
+    # The v1 compaction is compact.cu's kernel launched with whole-block
+    # lane spans: the same count, read on the unclamped path.
+    "compact_whole": ("minlz_tpu_torch/csrc/compact.cu",
+                      "minlz_tpu/ops/pallas_decode.py:326", "compact",
+                      "unclamped"),
+    "compact_dense": ("minlz_tpu_torch/csrc/compact.cu",
+                      "minlz_tpu/ops/exec_chain.py:94", "compact_dense",
+                      "scheduled"),
+    "exec_sched": ("minlz_tpu_torch/csrc/exec_range.cu",
+                   "minlz_tpu/ops/exec_chain.py:438", "exec_sched",
+                   "scheduled"),
 }
-# The path whose run gives each kernel's "launches".
-CLAIMED_ON = {"parse": "serializer", "compact": "serializer",
-              "exec_range": "serializer", "greedy": "device_emit"}
+BIG_BLOCK = 8 * MB      # the format's largest block: 16 KiB segments
 
 
 def log(*args):
@@ -159,19 +177,26 @@ def hostile_proposals(lanes: int, seg: int, dev):
 
 def run_stages(t, plan, plain: bool):
     """parse -> compact -> execute on plan tensors ``t``, with the kernels
-    or with the plain versions.  Returns every stage's output."""
+    or with the plain versions; a plan without a range (``plan.rng == 0``)
+    takes the whole-block executor.  Returns every stage's output."""
+    from minlz_tpu_torch.ops import exec_block as eb
     from minlz_tpu_torch.ops import exec_chain as ec
     from minlz_tpu_torch.ops import parse as ps
 
     parse = ps.parse_segments_plain if plain else ps.parse_segments
     compact = ec.compact_records_plain if plain else ec.compact_records
-    execute = ec.execute_ranges_plain if plain else ec.execute_ranges
     recs, counts = parse(t["comp"], t["lane_start"], t["lane_len"])
     crec, lane_out = compact(recs, counts, t["lane_start"], t["lane_len"],
                              t["lane_lo"], t["lane_hi"])
-    first = ec.range_firsts(lane_out, crec.shape[1], plan.spr)
-    out = execute(crec, first, t["range_out"], t["range_span"], t["comp"],
-                  plan.total_out, plan.rng)
+    first = ec.range_firsts(lane_out, crec.shape[1], t["range_lane"])
+    args = (crec, first, t["range_out"], t["range_span"], t["comp"],
+            plan.total_out)
+    if plan.rng:
+        execute = ec.execute_ranges_plain if plain else ec.execute_ranges
+        out = execute(*args, plan.max_span)
+    else:
+        execute = eb.execute_blocks_plain if plain else eb.execute_blocks
+        out = execute(*args)
     return recs, counts, crec, lane_out, first, out
 
 
@@ -179,19 +204,30 @@ STAGE_LABELS = ("parse records", "parse counts", "compacted records",
                 "lane offsets", "range offsets", "decoded bytes")
 
 
-def round_trip(label, corpus, dev, **writer_opts):
+def round_trip(label, corpus, dev, clamp=True, block_size=MB,
+               **writer_opts):
     """One main path: corpus -> Writer(**writer_opts) -> Reader on the
-    card and Reader on the host.  The launch counts are set to 0 just
-    before and read just after.  Returns the launch counts."""
+    card and Reader on the host.  ``clamp=False`` switches the encoder's
+    range clamp off around the Writer, so that its hints carry range 0.
+    The launch counts are set to 0 just before and read just after.
+    Returns (launch counts, stream length)."""
     from minlz_tpu_torch import _build
+    from minlz_tpu_torch.ops import device_codec
     from minlz_tpu_torch.stream import Reader, Writer
 
-    n = len(corpus) // MB
+    n = -(-len(corpus) // block_size)
     _build.reset_launches()
     buf = io.BytesIO()
-    w = Writer(buf, device=dev, level=LEVEL, block_size=MB, **writer_opts)
-    with w:
-        w.write(corpus)
+    clamp_range = device_codec.RANGE
+    try:
+        if not clamp:
+            device_codec.RANGE = 0
+        w = Writer(buf, device=dev, level=LEVEL, block_size=block_size,
+                   **writer_opts)
+        with w:
+            w.write(corpus)
+    finally:
+        device_codec.RANGE = clamp_range
     stream = buf.getvalue()
     r = Reader(io.BytesIO(stream), device=dev)
     back = r.readall()
@@ -206,10 +242,10 @@ def round_trip(label, corpus, dev, **writer_opts):
         raise AssertionError(
             f"{label}: device blocks: {w.codec.blocks_encoded} encoded, "
             f"{r.codec.blocks_decoded} decoded, want {n} of {n}")
-    log(f"main path ({label}): {n} MiB -> {len(stream)} bytes (ratio "
-        f"{len(stream) / len(corpus):.4f}); {n} of {n} blocks encoded and "
-        f"{n} of {n} decoded on the device; launches {launches}")
-    return launches
+    log(f"main path ({label}): {len(corpus) // MB} MiB -> {len(stream)} "
+        f"bytes (ratio {len(stream) / len(corpus):.4f}); {n} of {n} blocks "
+        f"encoded and {n} of {n} decoded on the device; launches {launches}")
+    return launches, len(stream)
 
 
 def main():
@@ -233,11 +269,12 @@ def main():
     from minlz_tpu_torch.native.codec import get_codec
     from minlz_tpu_torch.ops import emit
     from minlz_tpu_torch.ops import encode_kernel as ek
+    from minlz_tpu_torch.ops import exec_block as eb
     from minlz_tpu_torch.ops import exec_chain as ec
     from minlz_tpu_torch.ops import greedy as tg
     from minlz_tpu_torch.ops import parse as ps
     from minlz_tpu_torch.ops.device_codec import (
-        RANGE, DeviceCodec, parse_hints, split_body)
+        RANGE, DeviceCodec, marshal_hints, parse_hints, split_body)
     from minlz_tpu_torch.oracle.decode import decode_block, parse_header
     from minlz_tpu_torch.testing import mutate
 
@@ -254,8 +291,8 @@ def main():
         f"{time.perf_counter() - t0:.2f} s")
     secs, _ = _build.build()
     _build.load()
-    log(f"build: nvcc sm_90a, {len(KERNELS)} kernels in parallel, "
-        f"{secs:.2f} s")
+    n_src = sum(f.endswith(".cu") for f in _build.sources())
+    log(f"build: nvcc sm_90a, {n_src} sources in parallel, {secs:.2f} s")
 
     # ---- 3. decode kernels against their plain versions ------------------
     corpus = make_corpus(STREAM_MB * MB)
@@ -277,7 +314,7 @@ def main():
     args_compact = (recs, counts, t["lane_start"], t["lane_len"],
                     t["lane_lo"], t["lane_hi"])
     args_exec = (crec, first, t["range_out"], t["range_span"], t["comp"],
-                 plan.total_out, plan.rng)
+                 plan.total_out, plan.max_span)
     err, plain_ms = {}, {}
     (recs_p, counts_p), plain_ms["parse"] = once_ms(
         lambda: ps.parse_segments_plain(*args_parse))
@@ -321,19 +358,104 @@ def main():
                             + plan.total_out, 2 * plan.total_out),
     }
 
+    # ---- 3b. the append-only road on the same batch ------------------------
+    args_dense = (recs, counts, t["lane_start"], t["lane_len"])
+    drec, lane_out_d = ec.compact_records_dense(*args_dense)
+    torch.cuda.synchronize()
+    (drec_p, lane_out_dp), plain_ms["compact_dense"] = once_ms(
+        lambda: ec.compact_records_dense_plain(*args_dense))
+    require_equal("dense lane offsets", lane_out_d, lane_out_dp)
+    err["compact_dense"] = require_equal("dense records", drec, drec_p)
+    require_equal("dense records vs positioned records", drec, crec[1:])
+    args_sched = (drec, first) + args_exec[2:]
+    out_s = ec.execute_scheduled(*args_sched)
+    torch.cuda.synchronize()
+    out_sp, plain_ms["exec_sched"] = once_ms(
+        lambda: ec.execute_scheduled_plain(*args_sched))
+    err["exec_sched"] = require_equal("append-only decoded bytes", out_s,
+                                      out_sp)
+    require_equal("append-only executor vs exec_range", out_s, out)
+    log(f"compact_dense and exec_sched == plain versions (tolerance 0) on "
+        f"the same batch; exec_sched bytes == exec_range bytes")
+    k_ms["compact_dense"] = cuda_ms(
+        lambda: ec.compact_records_dense(*args_dense))
+    k_ms["exec_sched"] = cuda_ms(lambda: ec.execute_scheduled(*args_sched))
+    # compact_dense: four fields of each record and four lane arrays in,
+    # four fields and the lane offsets out; about 10 operations per record.
+    # exec_sched: four fields per record, else as exec_range.
+    bounds["compact_dense"] = bound(
+        16 * n_recs + 20 * lanes + 16 * n_recs + 8 * lanes, 10 * n_recs)
+    bounds["exec_sched"] = bound(16 * n_recs + 16 * n_ranges + n_comp
+                                 + plan.total_out, 2 * plan.total_out)
+    del drec_p, out_s, out_sp, recs_p, crec_p, out_p
+
+    # ---- 3c. the whole-block road: the same blocks without the clamp -----
+    enc_w = ek.encode_blocks_device(blocks, SEG, 0, LEVEL, dev)
+    if any(b is None for b, _ in enc_w):
+        raise AssertionError("a corpus block did not compress")
+    items_w = []
+    for block, hints in enc_w:
+        _, want, pos = parse_header(block)
+        items_w.append((block[pos:], marshal_hints(SEG, hints, 0), want))
+    plan_w = ec.plan_batch(
+        [split_body(body, parse_hints(payload)[1])
+         for body, payload, _ in items_w], SEG, 0)
+    tw = plan_w.tensors(dev)
+    recs_w, counts_w, crec_w, lane_out_w, first_w, out_w = run_stages(
+        tw, plan_w, False)
+    torch.cuda.synchronize()
+    args_compact_w = (recs_w, counts_w, tw["lane_start"], tw["lane_len"],
+                      tw["lane_lo"], tw["lane_hi"])
+    args_block = (crec_w, first_w, tw["range_out"], tw["range_span"],
+                  tw["comp"], plan_w.total_out)
+    (crec_wp, lane_out_wp), plain_ms["compact_whole"] = once_ms(
+        lambda: ec.compact_records_plain(*args_compact_w))
+    require_equal("whole-block lane offsets", lane_out_w, lane_out_wp)
+    err["compact_whole"] = require_equal("whole-block compacted records",
+                                         crec_w, crec_wp)
+    out_wp, plain_ms["exec_block"] = once_ms(
+        lambda: eb.execute_blocks_plain(*args_block))
+    err["exec_block"] = require_equal("whole-block decoded bytes", out_w,
+                                      out_wp)
+    host_w = out_w.cpu().numpy()
+    for (o, _), b in zip(plan_w.block_out, blocks):
+        if host_w[o:o + len(b)].tobytes() != b:
+            raise AssertionError("the whole-block decode differs from the "
+                                 "input")
+    pos_w, llen_w, clen_w, csrc_w, _ = crec_w.to(torch.int64)
+    d_w = pos_w + llen_w
+    far = int(((clen_w > 0) & ((d_w - csrc_w) // RANGE < d_w // RANGE)).sum())
+    n_comp_w, lanes_w = tw["comp"].numel(), len(plan_w.lane_len)
+    n_recs_w = crec_w.shape[1]
+    log(f"whole-block kernels == plain versions (tolerance 0) on "
+        f"{BATCH_BLOCKS} x 1 MiB without the range clamp: {n_comp_w} "
+        f"compressed bytes, {lanes_w} lanes, {n_recs_w} records, "
+        f"{BATCH_BLOCKS} blocks, {far} copies from an earlier 128 KiB range")
+    if far == 0:
+        raise AssertionError("the unclamped batch holds no far copy")
+    k_ms["compact_whole"] = cuda_ms(
+        lambda: ec.compact_records(*args_compact_w))
+    k_ms["exec_block"] = cuda_ms(lambda: eb.execute_blocks(*args_block),
+                                 repeats=3)
+    bounds["compact_whole"] = bound(
+        20 * n_recs_w + 28 * lanes_w + 20 * n_recs_w + 8 * lanes_w,
+        30 * n_recs_w)
+    bounds["exec_block"] = bound(
+        20 * n_recs_w + 16 * BATCH_BLOCKS + n_comp_w + plan_w.total_out,
+        2 * plan_w.total_out)
+    del crec_wp, out_wp, pos_w, llen_w, clen_w, csrc_w, d_w
+
     # Mutated block/hint pairs: CorruptError or bytes, no CUDA fault, and
     # kernel == plain version (run on the CPU) wherever the pipeline runs.
-    # Each pair is tried with both parts mutated and with the body alone.
+    # Each pair is tried with both parts mutated, with the body alone, and
+    # with the body alone under hints without a range clamp, which take the
+    # whole-block road (as do mutated hints whose range is unusable).
     def mutated_case(label, body, payload, want):
         try:
             got = codec.decode(body, payload, want)
         except CorruptError:
             torch.cuda.synchronize()
             return False
-        except NotImplementedError:
-            if parse_hints(payload)[2] != 0:
-                raise
-            return False  # well-formed hints without a range clamp
         seg, rng_b, segs = codec._prepare(body, payload, want)
         mplan = ec.plan_batch([segs], seg, rng_b)
         kern = run_stages(mplan.tensors(dev), mplan, False)
@@ -347,6 +469,7 @@ def main():
 
     rng = np.random.default_rng(0xBEEF)
     decoded = tried = 0
+    whole_before = _build.launch_counts()["exec_block"]
     for i in range(STREAM_MB * MB // MUTATED_BLOCK):
         if tried == MUTATED_PAIRS:
             break
@@ -359,10 +482,19 @@ def main():
         badh, badb = mutate(rng, hints), mutate(rng, block[pos:])
         decoded += mutated_case(f"pair {i}", badb, badh, want)
         decoded += mutated_case(f"pair {i}, body only", badb, hints, want)
+        seg_h, offs_h, _ = parse_hints(hints)
+        unclamped = marshal_hints(seg_h, [(o, 0) for o in offs_h], 0)
+        decoded += mutated_case(f"pair {i}, body only, no clamp", badb,
+                                unclamped, want)
         tried += 1
-    log(f"mutated pairs: {tried} pairs x (both parts, body only): {decoded} "
-        f"decoded with kernels == plain versions, {2 * tried - decoded} "
-        f"rejected as corrupt, no CUDA fault")
+    whole_runs = _build.launch_counts()["exec_block"] - whole_before
+    if whole_runs < 2 * tried:
+        raise AssertionError("the mutated pairs did not reach the "
+                             "whole-block road")
+    log(f"mutated pairs: {tried} pairs x (both parts, body only, body only "
+        f"without a clamp): {decoded} decoded with kernels == plain "
+        f"versions, {3 * tried - decoded} rejected as corrupt, "
+        f"{whole_runs} launches of the whole-block executor, no CUDA fault")
 
     # ---- 4. encode parity: the match finder on the card and the CPU ------
     arr = np.frombuffer(corpus[8 * MB:9 * MB], np.uint8).reshape(1, MB)
@@ -413,21 +545,86 @@ def main():
     del g_kern, g_plain, h_kern, h_plain, h_off, h_len
 
     # ---- 6. main paths: Writer -> Reader on the card ---------------------
-    path_launches = {}
-    path_launches["serializer"] = round_trip("serializer", corpus, dev)
-    path_launches["device_emit"] = round_trip("device_emit", corpus, dev,
-                                              device_emit=True)
-    for name in ("parse", "compact", "exec_range"):
-        for path, counts_ in path_launches.items():
-            if counts_[name] <= 0:
+    path_launches, stream_len = {}, {}
+    path_launches["serializer"], stream_len["serializer"] = round_trip(
+        "serializer", corpus, dev)
+    path_launches["device_emit"], stream_len["device_emit"] = round_trip(
+        "device_emit", corpus, dev, device_emit=True)
+    path_launches["unclamped"], stream_len["unclamped"] = round_trip(
+        "unclamped", corpus, dev, clamp=False)
+    log(f"ratio without the range clamp "
+        f"{stream_len['unclamped'] / len(corpus):.4f}, with it "
+        f"{stream_len['serializer'] / len(corpus):.4f}")
+
+    # The clamped stream's blocks (encode_batch is what the Writer calls)
+    # through the append-only road.
+    sched_items = []
+    for i in range(0, STREAM_MB, ENCODE_BATCH):
+        part = [corpus[j * MB:(j + 1) * MB]
+                for j in range(i, i + ENCODE_BATCH)]
+        for block, payload in codec.encode_batch(part, LEVEL):
+            _, want, pos = parse_header(block)
+            sched_items.append(
+                (split_body(block[pos:], parse_hints(payload)[1]), want))
+    _build.reset_launches()
+    back = []
+    for i in range(0, STREAM_MB, BATCH_BLOCKS):
+        part = sched_items[i:i + BATCH_BLOCKS]
+        back += ec.decode_blocks_chained(
+            [p[0] for p in part], [p[1] for p in part], SEG, RANGE, dev,
+            executor="scheduled")
+    torch.cuda.synchronize()
+    path_launches["scheduled"] = _build.launch_counts()
+    if b"".join(back) != corpus:
+        raise AssertionError("the scheduled executor did not decode the "
+                             "clamped stream's blocks")
+    log(f"main path (scheduled): {STREAM_MB} blocks of the clamped stream "
+        f"through decode_blocks_chained(executor=\"scheduled\") == corpus; "
+        f"launches {path_launches['scheduled']}")
+    del back, sched_items
+
+    for name, (_, _, count, path) in KERNELS.items():
+        if path_launches[path][count] <= 0:
+            raise AssertionError(f"kernel {name} never ran on the {path} "
+                                 f"path")
+    for path in ("serializer", "device_emit"):
+        for count in ("parse", "compact", "exec_range"):
+            if path_launches[path][count] <= 0:
                 raise AssertionError(
-                    f"kernel {name} never ran on the {path} path")
-    if path_launches["device_emit"]["greedy"] <= 0:
-        raise AssertionError("the greedy kernel never ran on the "
-                             "device_emit path")
-    if path_launches["serializer"]["greedy"] != 0:
-        raise AssertionError("the serializer path launched the greedy "
-                             "kernel")
+                    f"kernel {count} never ran on the {path} path")
+    for path, idle in (("serializer", ("greedy", "exec_block", "exec_sched",
+                                       "compact_dense")),
+                       ("unclamped", ("greedy", "exec_range", "exec_sched",
+                                      "compact_dense")),
+                       ("scheduled", ("greedy", "exec_range", "exec_block",
+                                      "compact"))):
+        for count in idle:
+            if path_launches[path][count] != 0:
+                raise AssertionError(f"the {path} path launched {count}")
+
+    # ---- 6b. one block of the format's largest size ------------------------
+    big = corpus[:BIG_BLOCK]
+    big_launches, _ = round_trip("8 MiB block", big, dev,
+                                 block_size=BIG_BLOCK)
+    if big_launches["exec_range"] != 1:
+        raise AssertionError("the 8 MiB block did not take the range road "
+                             "in one dispatch")
+    big_seg = DeviceCodec._seg_for(BIG_BLOCK)
+    big_block, big_hints = ek.encode_block_device(big, big_seg, 0, LEVEL,
+                                                  dev)
+    _, _, pos = parse_header(big_block)
+    big_segs = split_body(big_block[pos:], [h[0] for h in big_hints])
+    _build.reset_launches()
+    (got_big, big_ms) = once_ms(lambda: eb.decode_block_whole(
+        big_segs, BIG_BLOCK, big_seg, dev))
+    if got_big != big or _build.launch_counts()["exec_block"] != 1:
+        raise AssertionError("the 8 MiB block did not decode on the "
+                             "whole-block road")
+    log(f"8 MiB block, {big_seg}-byte segments, {len(big_segs)} lanes: "
+        f"Writer -> Reader on the range road, and decode_block_whole "
+        f"({len(big_block)} bytes without the clamp) in {big_ms:.1f} ms "
+        f"host bytes in/out  [{card}]")
+    del got_big, big_block, big_segs
 
     # ---- 7. the greedy serializer: one block, no native codec ------------
     _build.reset_launches()
@@ -458,6 +655,9 @@ def main():
         _, want, pos = parse_header(block)
         items.append((block[pos:], payload, want))
     e2e_ms = host_ms(lambda: codec.decode_batch(items))
+    dev_w_ms = cuda_ms(lambda: run_stages(tw, plan_w, False), repeats=3)
+    e2e_w_ms = host_ms(lambda: codec.decode_batch(items_w))
+    dev_s_ms = cuda_ms(lambda: ec.decode_planned(plan, dev, "scheduled"))
 
     # The all-device encode, stage by stage, as encode_block_emit runs it.
     def emit_stages():
@@ -511,11 +711,19 @@ def main():
             ("decode 3 kernels, device-resident, 8 x 1 MiB",
              dev_ms / BATCH_BLOCKS),
             ("decode_batch host bytes in/out, 8 x 1 MiB",
-             e2e_ms / BATCH_BLOCKS)):
+             e2e_ms / BATCH_BLOCKS),
+            ("decode, append-only road (plan copy + 3 kernels), 8 x 1 MiB",
+             dev_s_ms / BATCH_BLOCKS),
+            ("decode 3 kernels, whole-block road, device-resident, "
+             "8 x 1 MiB", dev_w_ms / BATCH_BLOCKS),
+            ("decode_batch host bytes in/out, whole-block road, 8 x 1 MiB",
+             e2e_w_ms / BATCH_BLOCKS)):
         log(f"time {label}: {val:.4f} ms/MB  [{card}]")
     log(f"peak device memory, encode_block_emit on 16 x 1 MiB: "
         f"{emit_peak / (1 << 20):.0f} MiB  [{card}]")
-    shapes = {"greedy": "16 x 1 MiB batch"}
+    shapes = {"greedy": "16 x 1 MiB batch",
+              "exec_block": "8 x 1 MiB batch without the clamp",
+              "compact_whole": "8 x 1 MiB batch without the clamp"}
     for name in KERNELS:
         log(f"time kernel {name}: {k_ms[name]:.4f} ms, plain version "
             f"{plain_ms[name]:.4f} ms, bound {bounds[name][0]:.4f} ms by "
@@ -527,12 +735,12 @@ def main():
     log(card)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": path_launches[CLAIMED_ON[name]][name],
-         "launches_by_path": {p: c[name] for p, c in path_launches.items()},
+         "launches": path_launches[path][count],
+         "launches_by_path": {p: c[count] for p, c in path_launches.items()},
          "max_abs_err": err[name], "ms": k_ms[name],
          "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": None}
-        for name, (src, rep) in KERNELS.items()]}))
+        for name, (src, rep, count, path) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -28,7 +28,10 @@ LIB_PATH = os.path.join(BUILD_DIR, "libminlz_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
-KERNELS = ("parse", "compact", "exec_range", "greedy")
+# One count per kernel.  "compact" counts the positioned compaction at
+# range spans and at whole-block spans alike: it is one kernel.
+KERNELS = ("parse", "compact", "exec_range", "greedy", "exec_block",
+           "compact_dense", "exec_sched")
 _launches = dict.fromkeys(KERNELS, 0)
 _lock = threading.Lock()
 _lib = None
@@ -41,10 +44,20 @@ _SIGNATURES = {
     # lane_hi, lanes, out, n_out, stream
     "minlz_compact": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P,
                       ctypes.c_int, _P, ctypes.c_longlong, _P],
+    # recs, n_slots, lane_start, lane_len, lane_cnt, lane_out, lanes, out,
+    # n_out, stream
+    "minlz_compact_dense": [_P, ctypes.c_longlong, _P, _P, _P, _P,
+                            ctypes.c_int, _P, ctypes.c_longlong, _P],
     # recs, n_recs, range_first, range_out, range_span, n_ranges,
     # max_span, comp, n_comp, out, stream
     "minlz_exec_ranges": [_P, ctypes.c_longlong, _P, _P, _P, ctypes.c_int,
                           ctypes.c_int, _P, ctypes.c_longlong, _P, _P],
+    "minlz_exec_sched": [_P, ctypes.c_longlong, _P, _P, _P, ctypes.c_int,
+                         ctypes.c_int, _P, ctypes.c_longlong, _P, _P],
+    # recs, n_recs, block_first, block_out, block_span, n_blocks, comp,
+    # n_comp, out, stream
+    "minlz_exec_blocks": [_P, ctypes.c_longlong, _P, _P, _P, ctypes.c_int,
+                          _P, ctypes.c_longlong, _P, _P],
     # off, len, lanes, seg, take, tok_off, tok_len, is_rep, stream
     "minlz_greedy": [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P],
 }

@@ -1,9 +1,23 @@
-// K2: record compaction, one thread block per segment lane.
+// Record compaction, one thread block per segment lane: two kernels.
 //
-// Replaces the TPU kernel minlz_tpu/ops/exec_chain.py::_stitch3_kernel
-// (reached through compact_ops_fast), which copies each lane's sorted,
-// packed record words into its dense per-chain slot range and zero-fills
-// the rest.
+// compact_kernel (K2) replaces the TPU kernel
+// minlz_tpu/ops/exec_chain.py::_stitch3_kernel (reached through
+// compact_ops_fast), which copies each lane's sorted, packed record words
+// into its dense per-chain slot range and zero-fills the rest.
+//
+// The same kernel, launched with whole-block lane spans (lane i of a block
+// owns [i * seg, (i + 1) * seg) of the block, see plan_batch(rng=0)), is the
+// counterpart of minlz_tpu/ops/pallas_decode.py::_stitch_kernel (reached
+// through compact_ops), the v1 compaction: one dense list per block in
+// (lane, record) order, here with block-local positions and global literal
+// indices.  Nothing in the kernel depends on how wide a range is: positions
+// and spans are int32 and a block is at most 8 MiB.
+//
+// compact_dense_kernel replaces minlz_tpu/ops/exec_chain.py::_stitch_kernel
+// (reached through compact_ops_dense), the append-only compaction: the same
+// dense lists without an output position (the executor keeps a cursor), so
+// there is no keep test and no scan; llen and clen are clamped at 0, csrc is
+// at least 1 and the literal index lies within the lane's compressed bytes.
 //
 // What bounds it here: it moves about 20 bytes in and 20 bytes out per
 // record, so it is bound by memory traffic and, for a batch of a few
@@ -101,6 +115,35 @@ __global__ void compact_kernel(const int* __restrict__ recs, long long n_slots,
   }
 }
 
+__global__ void compact_dense_kernel(const int* __restrict__ recs,
+                                     long long n_slots,
+                                     const int* __restrict__ lane_start,
+                                     const int* __restrict__ lane_len,
+                                     const int* __restrict__ lane_cnt,
+                                     const long long* __restrict__ lane_out,
+                                     int* __restrict__ out, long long n_out) {
+  const int lane = blockIdx.x;
+  const int cnt = lane_cnt[lane];
+  const long long cstart = lane_start[lane];
+  const long long slot0 = cstart + lane;
+  const long long o0 = lane_out[lane];
+  const int clen_lane = lane_len[lane];
+  const int* clen_f = recs + 2 * n_slots;
+  const int* csrc_f = recs + 3 * n_slots;
+  const int* lsrc_f = recs + 4 * n_slots;
+  const int* llen_f = recs + 5 * n_slots;
+  for (int k = threadIdx.x; k < cnt; k += kThreads) {
+    const long long slot = slot0 + k;
+    const long long o = o0 + k;
+    if (slot >= n_slots || o >= n_out) break;
+    const int ls = min(max(lsrc_f[slot], 0), clen_lane);
+    out[0 * n_out + o] = max(llen_f[slot], 0);
+    out[1 * n_out + o] = max(clen_f[slot], 0);
+    out[2 * n_out + o] = max(csrc_f[slot], 1);
+    out[3 * n_out + o] = (int)(cstart + ls);
+  }
+}
+
 }  // namespace
 
 // recs: [7, n_slots] int32 from minlz_parse; lane_start/lane_len/lane_cnt/
@@ -118,6 +161,24 @@ MINLZ_EXPORT int minlz_compact(const void* recs, long long n_slots,
         (const int*)lane_len, (const int*)lane_cnt,
         (const long long*)lane_out, (const int*)lane_lo, (const int*)lane_hi,
         (int*)out, n_out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// As minlz_compact, without lane spans; out: [4, n_out] int32 (llen, clen,
+// csrc, lit).
+MINLZ_EXPORT int minlz_compact_dense(const void* recs, long long n_slots,
+                                     const void* lane_start,
+                                     const void* lane_len,
+                                     const void* lane_cnt,
+                                     const void* lane_out, int lanes,
+                                     void* out, long long n_out,
+                                     void* stream) {
+  if (lanes > 0 && n_out > 0) {
+    compact_dense_kernel<<<lanes, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int*)recs, n_slots, (const int*)lane_start,
+        (const int*)lane_len, (const int*)lane_cnt,
+        (const long long*)lane_out, (int*)out, n_out);
   }
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,19 @@
-// K3: range executor, one thread block per 128 KiB output range.
+// Range executors, one thread block per 128 KiB output range: one kernel
+// template, two instances.
 //
-// Replaces the TPU kernel minlz_tpu/ops/exec_chain.py::_make_fast_kernel
-// (reached through execute_fast), the v2 decoder that places each record's
-// literals and then copies clen bytes from cur - csrc, range by range.
+// exec_range_kernel<false> (K3) replaces the TPU kernel
+// minlz_tpu/ops/exec_chain.py::_make_fast_kernel (reached through
+// execute_fast), the v2 decoder that places each record's literals and then
+// copies clen bytes from cur - csrc, range by range; its records carry their
+// output position.
+//
+// exec_range_kernel<true> replaces minlz_tpu/ops/exec_chain.py::
+// _make_sched_kernel (reached through execute_scheduled, in its packed and
+// its planar arena alike: two layouts of one function).  Its records carry
+// no position ([4, n]: llen, clen, csrc, lit): a cursor starts at 0 in every
+// range, each record lands at the cursor, clipped to the range span, and the
+// cursor stops at the span.  The TPU's deal of ranges to chains is work
+// distribution, which the grid does here.
 //
 // What bounds it here: records are short (a few bytes of literals and a copy
 // of a few to a few dozen bytes), and a copy may read what the records just
@@ -25,6 +36,7 @@
 // range start reads 0.  The plain version (ops/exec_chain.py) applies the
 // same clamps and rules.
 
+#include <algorithm>
 #include <climits>
 
 #include "common.cuh"
@@ -33,6 +45,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <bool kAppend>
 __global__ void exec_range_kernel(const int* __restrict__ recs,
                                   long long n_recs,
                                   const long long* __restrict__ range_first,
@@ -53,19 +66,22 @@ __global__ void exec_range_kernel(const int* __restrict__ recs,
   for (int i = (S / 16) * 16 + tid; i < S; i += kThreads) stage[i] = 0;
   __syncthreads();
 
+  // Positioned records have one more row, in front.
   const int* pos_f = recs;
-  const int* llen_f = recs + n_recs;
-  const int* clen_f = recs + 2 * n_recs;
-  const int* csrc_f = recs + 3 * n_recs;
-  const int* lit_f = recs + 4 * n_recs;
+  const int* llen_f = recs + (kAppend ? 0 : 1) * n_recs;
+  const int* clen_f = llen_f + n_recs;
+  const int* csrc_f = llen_f + 2 * n_recs;
+  const int* lit_f = llen_f + 3 * n_recs;
   const long long first = min(max(range_first[r], 0LL), n_recs);
   const long long last = min(max(range_first[r + 1], first), n_recs);
 
   int dirty_lo = INT_MAX;  // lowest byte written since the last barrier
+  int cursor = 0;          // kAppend: where the next record lands
   for (long long k = first; k < last; ++k) {
-    const int p = min(max(pos_f[k], 0), S);
+    const int p = kAppend ? cursor : min(max(pos_f[k], 0), S);
     const int llen = min(max(llen_f[k], 0), S - p);
     const int clen = min(max(clen_f[k], 0), S - p - llen);
+    cursor = p + llen + clen;
     const int csrc = max(csrc_f[k], 1);
     const long long lit = lit_f[k];
     for (int i = tid; i < llen; i += kThreads) {
@@ -101,6 +117,26 @@ __global__ void exec_range_kernel(const int* __restrict__ recs,
   }
 }
 
+template <bool kAppend>
+int launch(const void* recs, long long n_recs, const void* range_first,
+           const void* range_out, const void* range_span, int n_ranges,
+           int max_span, const void* comp, long long n_comp, void* out,
+           void* stream) {
+  if (n_ranges > 0) {
+    const int smem = (std::max(max_span, 0) + 15) / 16 * 16;
+    cudaError_t err = cudaFuncSetAttribute(
+        exec_range_kernel<kAppend>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    exec_range_kernel<kAppend>
+        <<<n_ranges, kThreads, smem, (cudaStream_t)stream>>>(
+            (const int*)recs, n_recs, (const long long*)range_first,
+            (const long long*)range_out, (const int*)range_span, max_span,
+            (const unsigned char*)comp, n_comp, (unsigned char*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // recs: [5, n_recs] int32 (pos, llen, clen, csrc, lit) from minlz_compact;
@@ -114,15 +150,19 @@ MINLZ_EXPORT int minlz_exec_ranges(const void* recs, long long n_recs,
                                    int max_span, const void* comp,
                                    long long n_comp, void* out,
                                    void* stream) {
-  if (n_ranges > 0) {
-    const int smem = (max_span + 15) / 16 * 16;
-    cudaError_t err = cudaFuncSetAttribute(
-        exec_range_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    exec_range_kernel<<<n_ranges, kThreads, smem, (cudaStream_t)stream>>>(
-        (const int*)recs, n_recs, (const long long*)range_first,
-        (const long long*)range_out, (const int*)range_span, max_span,
-        (const unsigned char*)comp, n_comp, (unsigned char*)out);
-  }
-  return (int)cudaGetLastError();
+  return launch<false>(recs, n_recs, range_first, range_out, range_span,
+                       n_ranges, max_span, comp, n_comp, out, stream);
+}
+
+// As minlz_exec_ranges, on recs [4, n_recs] int32 (llen, clen, csrc, lit)
+// from minlz_compact_dense, placed by an append-only cursor per range.
+MINLZ_EXPORT int minlz_exec_sched(const void* recs, long long n_recs,
+                                  const void* range_first,
+                                  const void* range_out,
+                                  const void* range_span, int n_ranges,
+                                  int max_span, const void* comp,
+                                  long long n_comp, void* out,
+                                  void* stream) {
+  return launch<true>(recs, n_recs, range_first, range_out, range_span,
+                      n_ranges, max_span, comp, n_comp, out, stream);
 }

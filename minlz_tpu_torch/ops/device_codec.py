@@ -5,6 +5,14 @@ same, so streams interchange with the JAX package in both directions:
 parse hints travel in the user-skippable chunk 0x88, payload
 "MZPH" + version + uvarint(segment_size) + uvarint(n_segments)
 [+ uvarint(range), version 2] + delta-uvarint compressed offsets.
+
+Decoding takes one of two roads, both on the device.  Hints with a range
+clamp that the range executors take go to ``exec_chain.decode_blocks_chained``
+(ranges decode independently, each staged in shared memory).  Every other
+well-formed hint payload (version 1, range 0, a range above ``RANGE`` or one
+that is no multiple of the segment size) goes to
+``exec_block.decode_blocks_whole``, where a copy may reach any earlier byte
+of its block.
 """
 
 from __future__ import annotations
@@ -24,10 +32,8 @@ WINDOW = 16384
 # Largest decoded block the device path takes (the format's block limit).
 MAX_BLOCK = 8 << 20
 
-_TODO_V1 = ("parse hints v1 (no range clamp) are not decoded on the device "
-            "yet: ROADMAP.md, 'Next, in order', item 1 (v1 hints)")
 _TODO_MESH = ("the device mesh is not ported yet: ROADMAP.md, 'Next, in "
-              "order', item 3 (mesh via torch.distributed)")
+              "order', item 2 (mesh via torch.distributed)")
 
 
 def marshal_hints(seg_size: int, hints, rng: int = 0) -> bytes:
@@ -88,7 +94,8 @@ class DeviceCodec:
     decode(body, hint_payload, decoded_len) -> bytes
 
     ``blocks_encoded`` / ``blocks_decoded`` count the blocks that went
-    through the device match finder and the device decoder.
+    through the device match finder and the device decoder, on either
+    decode road (range-parallel or whole-block).
     """
 
     def __init__(self, device="cuda"):
@@ -184,7 +191,12 @@ class DeviceCodec:
 
     @staticmethod
     def _chained_ok(seg_size: int, rng: int, decoded_len: int) -> bool:
-        """Range-clamped hints whose ranges fit the executor's staging."""
+        """Which road a well-formed hinted block takes.  True: its hints
+        carry a range clamp whose ranges are whole segments and fit the
+        range executors' staging, so it decodes range by range
+        (``decode_blocks_chained``).  False (no clamp, ``rng > RANGE`` or
+        ``rng % seg_size != 0``): it decodes as one whole block
+        (``decode_blocks_whole``)."""
         return bool(
             rng
             and rng % seg_size == 0
@@ -193,27 +205,29 @@ class DeviceCodec:
         )
 
     def _prepare(self, body: bytes, hint_payload: bytes, decoded_len: int):
+        """(segment size, range or 0 for the whole-block road, segments)."""
         seg_size, offs, rng = parse_hints(hint_payload)
         if seg_size % 128 or not 4096 <= seg_size <= (1 << 20):
             raise CorruptError(f"unsupported hint segment size {seg_size}")
         if len(offs) != -(-decoded_len // seg_size):
             raise CorruptError("parse hints do not cover the block")
-        if not rng:
-            raise NotImplementedError(_TODO_V1)
+        if decoded_len > MAX_BLOCK:
+            raise CorruptError(f"block of {decoded_len} bytes exceeds the "
+                               f"format's {MAX_BLOCK}")
         if not self._chained_ok(seg_size, rng, decoded_len):
-            raise CorruptError(
-                f"hint range {rng} does not fit segment size {seg_size} "
-                f"or block size {decoded_len}")
+            rng = 0
         return seg_size, rng, split_body(body, offs)
 
     def decode(self, body: bytes, hint_payload: bytes, decoded_len: int):
         return self.decode_batch([(body, hint_payload, decoded_len)])[0]
 
     def decode_batch(self, items):
-        """Decode many hinted blocks, one dispatch per (segment size,
-        range) group; the whole list is one group when written by one
-        Writer.  items: list of (body, hint_payload, decoded_len).  Returns
-        a list of bytes, aligned with items."""
+        """Decode many hinted blocks, one dispatch per group: blocks with a
+        usable range clamp by (segment size, range), every other block by
+        segment size on the whole-block road.  The whole list is one group
+        when written by one Writer.  items: list of (body, hint_payload,
+        decoded_len).  Returns a list of bytes, aligned with items."""
+        from .exec_block import decode_blocks_whole
         from .exec_chain import decode_blocks_chained
 
         groups = {}
@@ -222,9 +236,13 @@ class DeviceCodec:
             groups.setdefault((seg, rng), []).append((i, segs, dlen))
         out = [None] * len(items)
         for (seg, rng), entries in groups.items():
-            res = decode_blocks_chained(
-                [e[1] for e in entries], [e[2] for e in entries], seg, rng,
-                self.device)
+            segs = [e[1] for e in entries]
+            wants = [e[2] for e in entries]
+            if rng:
+                res = decode_blocks_chained(segs, wants, seg, rng,
+                                            self.device)
+            else:
+                res = decode_blocks_whole(segs, wants, seg, self.device)
             for (i, _, _), r in zip(entries, res):
                 out[i] = r
         self.blocks_decoded += len(items)

@@ -1,18 +1,33 @@
 """Range-parallel decode of hinted MinLZ blocks: plan, parse, compact, execute.
 
-The counterpart of the main decode path of ``minlz_tpu.ops.exec_chain``
-(``plan_batch`` -> ``_decode_batch_jit`` -> ``decode_blocks_chained``).
+The counterpart of ``minlz_tpu.ops.exec_chain`` (``plan_batch`` ->
+``_decode_batch_jit`` -> ``decode_blocks_chained``), both of its branches.
 Parse hints v2 guarantee that every copy source lies in the ``RANGE``-aligned
 range of its destination, so ranges decode independently.  A batch of blocks
 decodes in one dispatch of three kernels:
 
 1. parse (``ops/parse.py``, ``csrc/parse.cu``): every segment lane's
    compressed bytes -> the lane's record list;
-2. compact (``compact_records``, ``csrc/compact.cu``): the lane lists ->
-   one dense record list per range, in output order, with range-local
-   output positions, global literal indices and the hostile-input clamps;
-3. execute (``execute_ranges``, ``csrc/exec_range.cu``): one range per
-   thread block, staged in shared memory -> the decoded bytes.
+2. compact: the lane lists -> one dense record list per range, in output
+   order, with global literal indices and the hostile-input clamps;
+3. execute: one range per thread block, staged in shared memory -> the
+   decoded bytes.
+
+Steps 2 and 3 come in two forms, chosen by the ``executor`` argument of
+``decode_blocks_chained``:
+
+* ``"fast"`` (the default; ``compact_ops_fast`` / ``execute_fast`` of the
+  TPU package): ``compact_records`` gives every record its range-local
+  output position and ``execute_ranges`` places it there;
+* ``"scheduled"`` (``compact_ops_dense`` / ``execute_scheduled`` of the TPU
+  package, in its packed and its planar layout alike): records carry no
+  position; ``compact_records_dense`` drops it and ``execute_scheduled``
+  keeps an append-only cursor per range.  The bytes are the same on every
+  valid stream.
+
+The planning also serves the whole-block road of ``ops/exec_block.py``
+(blocks without a usable range clamp): ``plan_batch(..., rng=0)`` lays out
+one range per block, as many lanes wide as the block has segments.
 
 Lanes and ranges keep the TPU package's meaning: lane ``r * spr + i`` holds
 segment i of range r (``spr = rng // seg``), each block's lanes are padded
@@ -59,8 +74,9 @@ class BatchPlan:
     lane_hi: np.ndarray     # [lanes] int32, range-local output span end
     range_out: np.ndarray   # [R] int64, output offset of each range
     range_span: np.ndarray  # [R] int32, output bytes of each range
-    spr: int                # segments (lanes) per range
-    rng: int                # range size in bytes
+    range_lane: np.ndarray  # [R + 1] int64, first lane of each range
+    rng: int                # range size in bytes; 0: one range per block
+    max_span: int           # the largest range span the executor must take
     block_out: list         # per block: (output offset, nseg * seg)
     total_out: int          # decoded bytes of the batch, before trimming
 
@@ -74,6 +90,7 @@ class BatchPlan:
             "lane_hi": torch.from_numpy(self.lane_hi).to(dev),
             "range_out": torch.from_numpy(self.range_out).to(dev),
             "range_span": torch.from_numpy(self.range_span).to(dev),
+            "range_lane": torch.from_numpy(self.range_lane).to(dev),
         }
 
 
@@ -84,30 +101,35 @@ def _cat(parts, dtype):
 def plan_batch(blocks_segs, seg: int, rng: int = RANGE) -> BatchPlan:
     """Pack every block's segment streams into lanes and lay out the
     per-range output geometry.  blocks_segs: per block, the list of its
-    segments' compressed bytes."""
-    if seg <= 0 or rng <= 0 or rng % seg:
-        raise ValueError("range must be a positive multiple of the segment "
-                         "size")
-    spr = rng // seg
-    lens, lo, hi, r_out, r_span, block_out = [], [], [], [], [], []
+    segments' compressed bytes.  ``rng == 0`` plans whole blocks: one range
+    per block, of ``nseg`` lanes and ``nseg * seg`` bytes."""
+    if seg <= 0 or rng < 0 or rng % seg:
+        raise ValueError("range must be 0 or a positive multiple of the "
+                         "segment size")
+    lens, lo, hi, r_out, r_span, r_lanes, block_out = [], [], [], [], [], [], []
     parts = []
     out_base = 0
     for segs in blocks_segs:
         nseg = len(segs)
-        nr = -(-nseg // spr)
         blk = nseg * seg
+        if blk >= _LIMIT:
+            raise ValueError("block exceeds 2 GiB")
+        spr = rng // seg if rng else nseg
+        nr = -(-nseg // spr) if rng else 1
+        span_max = rng if rng else blk
         seg_len = np.zeros(nr * spr, np.int64)
         seg_len[:nseg] = [len(s) for s in segs]
         parts.extend(bytes(s) for s in segs)
         j = np.arange(nr, dtype=np.int64)
-        span = np.minimum(rng, blk - j * rng)
-        i_lo = (np.arange(nr * spr, dtype=np.int64) % spr) * seg
+        span = np.minimum(span_max, blk - j * span_max)
+        i_lo = (np.arange(nr * spr, dtype=np.int64) % max(spr, 1)) * seg
         lane_span = np.repeat(span, spr)
         lens.append(seg_len)
         lo.append(np.minimum(i_lo, lane_span))
         hi.append(np.minimum(i_lo + seg, lane_span))
-        r_out.append(out_base + j * rng)
+        r_out.append(out_base + j * span_max)
         r_span.append(span)
+        r_lanes.append(np.full(nr, spr, np.int64))
         block_out.append((out_base, blk))
         out_base += blk
     comp = np.frombuffer(b"".join(parts) or b"\x00", np.uint8).copy()
@@ -115,6 +137,7 @@ def plan_batch(blocks_segs, seg: int, rng: int = RANGE) -> BatchPlan:
     if len(comp) >= _LIMIT or out_base >= _LIMIT:
         raise ValueError("decode batch exceeds 2 GiB")
     lane_start = np.cumsum(lane_len) - lane_len
+    range_span = _cat(r_span, np.int32)
     return BatchPlan(
         comp=comp,
         lane_start=lane_start.astype(np.int32),
@@ -122,9 +145,11 @@ def plan_batch(blocks_segs, seg: int, rng: int = RANGE) -> BatchPlan:
         lane_lo=_cat(lo, np.int32),
         lane_hi=_cat(hi, np.int32),
         range_out=_cat(r_out, np.int64),
-        range_span=_cat(r_span, np.int32),
-        spr=spr,
+        range_span=range_span,
+        range_lane=np.concatenate(
+            [[0], np.cumsum(_cat(r_lanes, np.int64))]).astype(np.int64),
         rng=rng,
+        max_span=rng if rng else int(range_span.max(initial=0)),
         block_out=block_out,
         total_out=out_base,
     )
@@ -135,7 +160,9 @@ def plan_batch(blocks_segs, seg: int, rng: int = RANGE) -> BatchPlan:
 # --------------------------------------------------------------------------
 
 COMPACT = "compact"
+COMPACT_DENSE = "compact_dense"
 EXEC = "exec_range"
+EXEC_SCHED = "exec_sched"
 
 
 def lane_offsets(counts):
@@ -146,11 +173,24 @@ def lane_offsets(counts):
     return incl - counts, total
 
 
+def _check_lanes(name, dev, tensors, dtypes):
+    for t, dt in zip(tensors, dtypes):
+        if t.dtype != dt or t.device != dev:
+            raise ValueError(f"{name}: wrong dtype or device")
+    if any(t.shape != tensors[1].shape for t in tensors[1:]):
+        raise ValueError(f"{name}: lane arrays differ in length")
+
+
 def compact_records(recs, counts, lane_start, lane_len, lane_lo, lane_hi):
     """recs [7, n_slots] / counts [lanes]: the parse output.  Returns
     (out [5, total] int32 with rows pos, llen, clen, csrc, lit; lane_out
     [lanes] int64).  Lanes are in range order, so range r's records are
-    out[:, lane_out[r * spr]:lane_out[(r + 1) * spr]]."""
+    out[:, first[r]:first[r + 1]] with ``first = range_firsts(...)``.
+
+    With whole-block lane spans (``plan_batch(..., rng=0)``: lane i of a
+    block owns [i * seg, (i + 1) * seg) of it) the same launch is the
+    counterpart of ``minlz_tpu.ops.pallas_decode.compact_ops``: one dense
+    list per block, in output order, with block-local positions."""
     dev = recs.device
     if dev.type == "cpu":
         return compact_records_plain(recs, counts, lane_start, lane_len,
@@ -163,11 +203,8 @@ def compact_records(recs, counts, lane_start, lane_len, lane_lo, lane_hi):
     out = torch.empty((5, total), dtype=_I32, device=dev)
     args = [t.contiguous() for t in (recs, lane_start, lane_len, counts,
                                      lane_out, lane_lo, lane_hi)]
-    for t, dt in zip(args, (_I32, _I32, _I32, _I32, _I64, _I32, _I32)):
-        if t.dtype != dt or t.device != dev:
-            raise ValueError("compact_records: wrong dtype or device")
-    if any(t.shape != lane_len.shape for t in args[1:]):
-        raise ValueError("compact_records: lane arrays differ in length")
+    _check_lanes("compact_records", dev, args,
+                 (_I32, _I32, _I32, _I32, _I64, _I32, _I32))
     lib = _build.load()
     _build.check(lib, lib.minlz_compact(
         args[0].data_ptr(), ctypes.c_longlong(recs.shape[1]),
@@ -210,39 +247,100 @@ def compact_records_plain(recs, counts, lane_start, lane_len, lane_lo,
     return out, lane_out
 
 
+def compact_records_dense(recs, counts, lane_start, lane_len):
+    """The append-only compaction, counterpart of
+    ``minlz_tpu.ops.exec_chain.compact_ops_dense``.  recs [7, n_slots] /
+    counts [lanes]: the parse output.  Returns (out [4, total] int32 with
+    rows llen, clen, max(csrc, 1), lit; lane_out [lanes] int64), in range
+    order.  No output position and no keep test: the executor's cursor only
+    moves forward.  llen and clen are clamped at 0 and the literal index
+    into the lane's compressed bytes."""
+    dev = recs.device
+    if dev.type == "cpu":
+        return compact_records_dense_plain(recs, counts, lane_start,
+                                           lane_len)
+    if dev.type != "cuda":
+        raise ValueError(f"no compaction kernel for device {dev}")
+    if recs.dim() != 2 or recs.shape[0] != 7:
+        raise ValueError("recs must be [7, n_slots]")
+    lane_out, total = lane_offsets(counts)
+    out = torch.empty((4, total), dtype=_I32, device=dev)
+    args = [t.contiguous() for t in (recs, lane_start, lane_len, counts,
+                                     lane_out)]
+    _check_lanes("compact_records_dense", dev, args,
+                 (_I32, _I32, _I32, _I32, _I64))
+    lib = _build.load()
+    _build.check(lib, lib.minlz_compact_dense(
+        args[0].data_ptr(), ctypes.c_longlong(recs.shape[1]),
+        *(a.data_ptr() for a in args[1:]), lane_len.numel(),
+        out.data_ptr(), ctypes.c_longlong(total), _build.stream_of(recs)))
+    _build.count_launch(COMPACT_DENSE)
+    return out, lane_out
+
+
+def compact_records_dense_plain(recs, counts, lane_start, lane_len):
+    """Plain torch version of ``compact_records_dense`` (any device)."""
+    lane_out, total = lane_offsets(counts)
+    dev = recs.device
+    lane = torch.repeat_interleave(
+        torch.arange(counts.numel(), device=dev), counts.to(_I64),
+        output_size=total)
+    rank = torch.arange(total, device=dev) - lane_out[lane]
+    slot = lane_start.to(_I64)[lane] + lane + rank
+    clen, csrc, lsrc, llen = recs[2:6, slot].to(_I64)
+    ls = torch.minimum(lsrc.clamp(min=0), lane_len.to(_I64)[lane])
+    out = torch.stack([llen.clamp(min=0), clen.clamp(min=0),
+                       csrc.clamp(min=1),
+                       lane_start.to(_I64)[lane] + ls]).to(_I32)
+    return out, lane_out
+
+
 # --------------------------------------------------------------------------
 # Execution: per-range record lists -> decoded bytes
 # --------------------------------------------------------------------------
 
-def range_firsts(lane_out, total: int, spr: int):
-    """[R + 1] int64 record offsets of each range in the dense lists."""
-    return torch.cat([lane_out[::spr],
-                      lane_out.new_full((1,), total)])
+def range_firsts(lane_out, total: int, range_lane):
+    """[R + 1] int64 record offsets of each range in the dense lists, from
+    the first lane of every range (``range_lane`` [R + 1] int64)."""
+    return torch.cat([lane_out, lane_out.new_full((1,), total)])[range_lane]
+
+
+def range_args(name, crec, rows, range_first, range_out, range_span, comp,
+               total_out):
+    """The contiguous, checked arguments of a range executor's launch."""
+    dev = crec.device
+    if dev.type != "cuda":
+        raise ValueError(f"no {name} kernel for device {dev}")
+    if crec.dim() != 2 or crec.shape[0] != rows:
+        raise ValueError(f"{name}: records must be [{rows}, n]")
+    args = [t.contiguous() for t in (crec, range_first, range_out,
+                                     range_span, comp)]
+    for t, dt in zip(args, (_I32, _I64, _I64, _I32, torch.uint8)):
+        if t.dtype != dt or t.device != dev:
+            raise ValueError(f"{name}: wrong dtype or device")
+    if range_first.numel() != range_span.numel() + 1 \
+            or range_out.numel() != range_span.numel():
+        raise ValueError("range_first must have one entry per range + 1")
+    if range_span.numel() and (
+            int(range_out.min()) < 0
+            or int((range_out + range_span.to(_I64)).max()) > total_out):
+        raise ValueError("a range lies outside the output")
+    return args
 
 
 def execute_ranges(crec, range_first, range_out, range_span, comp,
                    total_out: int, max_span: int = RANGE):
     """crec [5, n] int32 (pos, llen, clen, csrc, lit); range_first [R + 1]
     int64; range_out [R] int64; range_span [R] int32 (each <= max_span);
-    comp [m] uint8.  Returns the decoded bytes, [total_out] uint8."""
-    dev = crec.device
-    if dev.type == "cpu":
+    comp [m] uint8.  Returns the decoded bytes, [total_out] uint8.  The
+    ranges are expected to tile the output, as a plan's do: the kernels
+    leave bytes outside every range unwritten (the plain versions give 0)."""
+    if crec.device.type == "cpu":
         return execute_ranges_plain(crec, range_first, range_out,
                                     range_span, comp, total_out, max_span)
-    if dev.type != "cuda":
-        raise ValueError(f"no range executor for device {dev}")
-    args = [t.contiguous() for t in (crec, range_first, range_out,
-                                     range_span, comp)]
-    for t, dt in zip(args, (_I32, _I64, _I64, _I32, torch.uint8)):
-        if t.dtype != dt or t.device != dev:
-            raise ValueError("execute_ranges: wrong dtype or device")
-    if range_first.numel() != range_span.numel() + 1:
-        raise ValueError("range_first must have one entry per range + 1")
-    if range_span.numel() and (
-            int(range_out.min()) < 0
-            or int((range_out + range_span.to(_I64)).max()) > total_out):
-        raise ValueError("a range lies outside the output")
-    out = torch.empty(total_out, dtype=torch.uint8, device=dev)
+    args = range_args("execute_ranges", crec, 5, range_first, range_out,
+                      range_span, comp, total_out)
+    out = torch.empty(total_out, dtype=torch.uint8, device=crec.device)
     lib = _build.load()
     _build.check(lib, lib.minlz_exec_ranges(
         args[0].data_ptr(), ctypes.c_longlong(crec.shape[1]),
@@ -320,39 +418,118 @@ def execute_ranges_plain(crec, range_first, range_out, range_span, comp,
     raise RuntimeError("pointer resolution did not converge")
 
 
+def execute_scheduled(drec, range_first, range_out, range_span, comp,
+                      total_out: int, max_span: int = RANGE):
+    """The append-only executor, counterpart of
+    ``minlz_tpu.ops.exec_chain.execute_scheduled`` in both of its arena
+    layouts.  drec [4, n] int32 (llen, clen, csrc, lit) from
+    ``compact_records_dense``; the other arguments as ``execute_ranges``.
+    Per range a cursor starts at 0; each record places its literals at the
+    cursor and then its copy, each clipped to the range span, and the
+    cursor never passes the span.  Returns [total_out] uint8."""
+    if drec.device.type == "cpu":
+        return execute_scheduled_plain(drec, range_first, range_out,
+                                       range_span, comp, total_out, max_span)
+    args = range_args("execute_scheduled", drec, 4, range_first, range_out,
+                      range_span, comp, total_out)
+    out = torch.empty(total_out, dtype=torch.uint8, device=drec.device)
+    lib = _build.load()
+    _build.check(lib, lib.minlz_exec_sched(
+        args[0].data_ptr(), ctypes.c_longlong(drec.shape[1]),
+        args[1].data_ptr(), args[2].data_ptr(), args[3].data_ptr(),
+        range_span.numel(), max_span, args[4].data_ptr(),
+        ctypes.c_longlong(comp.numel()), out.data_ptr(),
+        _build.stream_of(drec)))
+    _build.count_launch(EXEC_SCHED)
+    return out
+
+
+def execute_scheduled_plain(drec, range_first, range_out, range_span, comp,
+                            total_out: int, max_span: int = RANGE):
+    """Plain torch version of ``execute_scheduled``: each record's position
+    is the sum of the lengths before it in its range (an exclusive prefix
+    sum, stopped at the span, where the kernel's cursor stops too); then
+    ``execute_ranges_plain`` resolves the positioned records."""
+    dev = drec.device
+    n = drec.shape[1]
+    R = range_span.numel()
+    llen, clen, csrc, lit = drec.to(_I64)
+    step = llen.clamp(min=0) + clen.clamp(min=0)
+    before = torch.cat([step.new_zeros(1), torch.cumsum(step, 0)])
+    first = range_first[:-1].clamp(0, n)
+    last = torch.maximum(range_first[1:].clamp(0, n), first)
+    # The range of record k: records outside every range are never taken.
+    cnt = last - first
+    pos = torch.zeros(n, dtype=_I64, device=dev)
+    rr = torch.repeat_interleave(torch.arange(R, device=dev), cnt)
+    k = first[rr] + torch.arange(rr.numel(), device=dev) - (
+        torch.cumsum(cnt, 0) - cnt)[rr]
+    S = range_span.to(_I64).clamp(0, max_span)[rr]
+    pos[k] = torch.minimum(before[k] - before[first[rr]], S)
+    crec = torch.stack([pos, llen, clen, csrc, lit]).to(_I32)
+    return execute_ranges_plain(crec, range_first, range_out, range_span,
+                                comp, total_out, max_span)
+
+
 # --------------------------------------------------------------------------
 # Batched decode entry points
 # --------------------------------------------------------------------------
 
-def decode_planned(plan: BatchPlan, device="cuda"):
+EXECUTORS = ("fast", "scheduled")
+
+
+def decode_planned(plan: BatchPlan, device="cuda", executor: str = "fast"):
     """Run parse -> compact -> execute for a plan on ``device``; returns the
     batch's decoded bytes as a [plan.total_out] uint8 tensor there."""
+    if executor not in EXECUTORS:
+        raise ValueError(f"executor must be one of {EXECUTORS}")
+    if not 0 < plan.rng <= RANGE:
+        raise ValueError(f"the range executors stage at most {RANGE} bytes "
+                         f"and no whole block")
     t = plan.tensors(device)
     recs, counts = parse_segments(t["comp"], t["lane_start"], t["lane_len"])
-    crec, lane_out = compact_records(recs, counts, t["lane_start"],
-                                     t["lane_len"], t["lane_lo"],
-                                     t["lane_hi"])
-    first = range_firsts(lane_out, crec.shape[1], plan.spr)
-    return execute_ranges(crec, first, t["range_out"], t["range_span"],
-                          t["comp"], plan.total_out, plan.rng)
+    if executor == "fast":
+        crec, lane_out = compact_records(recs, counts, t["lane_start"],
+                                         t["lane_len"], t["lane_lo"],
+                                         t["lane_hi"])
+        execute = execute_ranges
+    else:
+        crec, lane_out = compact_records_dense(recs, counts, t["lane_start"],
+                                               t["lane_len"])
+        execute = execute_scheduled
+    first = range_firsts(lane_out, crec.shape[1], t["range_lane"])
+    return execute(crec, first, t["range_out"], t["range_span"], t["comp"],
+                   plan.total_out, plan.max_span)
 
 
-def decode_blocks_chained(blocks_segs, out_totals, seg: int,
-                          rng: int = RANGE, device="cuda"):
-    """Decode a batch of blocks whose parse hints guarantee that match
-    sources stay within ``rng``-byte ranges (hints v2), in one dispatch.
-    Host bytes in, host bytes out: a list of bytes objects, one per block,
-    each trimmed to its ``out_totals`` entry."""
-    if not blocks_segs:
-        return []
-    plan = plan_batch(blocks_segs, seg, rng)
-    out = decode_planned(plan, device).cpu().numpy()
-    return [out[o : o + min(n, want)].tobytes()
+def trim_blocks(plan: BatchPlan, out, out_totals):
+    """The batch's decoded tensor -> one bytes object per block, each
+    trimmed to its ``out_totals`` entry."""
+    host = out.cpu().numpy()
+    return [host[o : o + min(n, want)].tobytes()
             for (o, n), want in zip(plan.block_out, out_totals)]
 
 
+def decode_blocks_chained(blocks_segs, out_totals, seg: int,
+                          rng: int = RANGE, device="cuda",
+                          executor: str = "fast"):
+    """Decode a batch of blocks whose parse hints guarantee that match
+    sources stay within ``rng``-byte ranges (hints v2), in one dispatch.
+    ``executor``: ``"fast"`` (positioned records) or ``"scheduled"``
+    (append-only cursor), the counterpart of the TPU package's ``planar``
+    argument and ``v2`` switch.  Host bytes in, host bytes out: a list of
+    bytes objects, one per block, each trimmed to its ``out_totals``
+    entry."""
+    if not blocks_segs:
+        return []
+    plan = plan_batch(blocks_segs, seg, rng)
+    return trim_blocks(plan, decode_planned(plan, device, executor),
+                       out_totals)
+
+
 def decode_block_chained(seg_bytes_list, out_total: int, seg: int,
-                         rng: int = RANGE, device="cuda"):
+                         rng: int = RANGE, device="cuda",
+                         executor: str = "fast"):
     """Decode one block (a batch of one)."""
     return decode_blocks_chained([seg_bytes_list], [out_total], seg, rng,
-                                 device)[0]
+                                 device, executor)[0]

@@ -34,7 +34,7 @@ from ..minlz import (
 from .index import Index
 
 _TODO_SEARCH = ("search tables are not ported yet: ROADMAP.md, 'Next, in "
-                "order', item 6 (the remaining host modules: search/)")
+                "order', item 4 (the remaining host modules: search/)")
 
 
 def _build_table_auto(data, cfg, overlap, block_size):

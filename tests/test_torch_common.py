@@ -77,6 +77,43 @@ def greedy_reference(off, length):
     return out
 
 
+def encode_segs(data: bytes, seg: int, rng: int, level: int = 2):
+    """The port's CPU encode of one block, checked against the oracle, as
+    the list of its segments' compressed bytes."""
+    from minlz_tpu_torch.oracle import decode as odec
+    from minlz_tpu_torch.ops.device_codec import split_body
+
+    block, hints = tek.encode_block_device(data, seg, rng, level, "cpu")
+    assert odec.decode_block(block) == data
+    _, _, pos = odec.parse_header(block)
+    return split_body(block[pos:], [h[0] for h in hints])
+
+
+def dense_ops_to_records(ops, counts, pc: int, guard: int, lane_start):
+    """The JAX package's ``compact_ops_dense`` words -> the port's
+    append-only records.  ops: [nchain, cap_chain, 3] int32 (llen | clen <<
+    14, csrc, guard + lane * pc + lsrc); counts: the real record count of
+    every chain; lane_start: the port's [lanes] offsets of the lanes'
+    compressed bytes.  Returns [4, total] int32 (llen, clen, csrc, lit),
+    chain after chain."""
+    ops = np.asarray(ops)
+    rows = np.concatenate([ops[ch, :n] for ch, n in enumerate(counts)])
+    a, b, c = rows[:, 0], rows[:, 1], rows[:, 2]
+    lane, lsrc = np.divmod(c - guard, pc)
+    lit = np.asarray(lane_start, np.int64)[lane] + lsrc
+    return np.stack([a & 0x3FFF, (a >> 14) & 0x3FFF, b, lit]).astype(np.int32)
+
+
+def test_dense_ops_to_records_undoes_the_arena_offset():
+    ops = np.zeros((2, 4, 3), np.int32)
+    ops[0, 0] = (5 | (9 << 14), 3, 512 + 0 * 1024 + 7)
+    ops[1, 0] = (0 | (40 << 14), 1, 512 + 2 * 1024 + 100)
+    ops[1, 1] = (300, 1, 512 + 3 * 1024)
+    got = dense_ops_to_records(ops, [1, 2], 1024, 512, [0, 50, 80, 200])
+    want = np.array([[5, 0, 300], [9, 40, 0], [3, 1, 1], [7, 180, 200]])
+    np.testing.assert_array_equal(got, want)
+
+
 def test_helpers_hand_over_the_same_values():
     off, length = random_proposals(0, 4, 64, hostile=True)
     (joff, jlen), (toff, tlen) = both(off, length)

@@ -1,5 +1,6 @@
 """Card-only checks: each CUDA kernel of the port against its plain torch
-version, bit for bit, on a small decode batch.  Skipped without a GPU;
+version, bit for bit, on a small decode batch (encoded with the range clamp
+for the range road, without it for the whole-block road).  Skipped without a GPU;
 chip_smoke.py runs the same comparison at the main path's shapes."""
 
 import numpy as np
@@ -7,6 +8,7 @@ import pytest
 import torch
 
 from minlz_tpu_torch.oracle import decode as odec
+from minlz_tpu_torch.ops import exec_block as teb
 from minlz_tpu_torch.ops import exec_chain as tec
 from minlz_tpu_torch.ops.device_codec import RANGE, split_body
 from minlz_tpu_torch.ops.encode_kernel import encode_blocks_device
@@ -15,8 +17,9 @@ from minlz_tpu_torch.ops.parse import parse_segments, parse_segments_plain
 pytestmark = pytest.mark.cuda
 
 
-@pytest.fixture(scope="module")
-def stages(twain):
+def _stages(twain, rng_bytes):
+    """The small three-block batch, encoded on the card with the given
+    range clamp (0: none), planned with it, parsed and compacted."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     rng = np.random.default_rng(11)
@@ -24,16 +27,26 @@ def stages(twain):
               rng.integers(0, 8, 70 << 10, dtype=np.uint8).tobytes()]
     segs = []
     for b, (blk, hints) in zip(
-            blocks, encode_blocks_device(blocks, 4096, RANGE, 2, "cuda")):
+            blocks, encode_blocks_device(blocks, 4096, rng_bytes, 2, "cuda")):
         _, _, pos = odec.parse_header(blk)
         segs.append(split_body(blk[pos:], [h[0] for h in hints]))
-    plan = tec.plan_batch(segs, 4096, RANGE)
+    plan = tec.plan_batch(segs, 4096, rng_bytes)
     t = plan.tensors("cuda")
     recs, counts = parse_segments(t["comp"], t["lane_start"], t["lane_len"])
     crec, lane_out = tec.compact_records(recs, counts, t["lane_start"],
                                          t["lane_len"], t["lane_lo"],
                                          t["lane_hi"])
     return blocks, segs, plan, t, recs, counts, crec, lane_out
+
+
+@pytest.fixture(scope="module")
+def stages(twain):
+    return _stages(twain, RANGE)
+
+
+@pytest.fixture(scope="module")
+def whole_stages(twain):
+    return _stages(twain, 0)
 
 
 def test_parse_kernel_matches_plain(stages):
@@ -55,15 +68,112 @@ def test_compact_kernel_matches_plain(stages):
 
 def test_exec_kernel_matches_plain(stages):
     blocks, segs, plan, t, _, _, crec, lane_out = stages
-    first = tec.range_firsts(lane_out, crec.shape[1], plan.spr)
+    first = tec.range_firsts(lane_out, crec.shape[1], t["range_lane"])
     args = (crec, first, t["range_out"], t["range_span"], t["comp"],
-            plan.total_out, plan.rng)
+            plan.total_out, plan.max_span)
     out = tec.execute_ranges(*args)
     assert torch.equal(out, tec.execute_ranges_plain(*args))
     got = tec.decode_blocks_chained(segs, [len(b) for b in blocks], 4096,
                                     RANGE, "cuda")
     torch.cuda.synchronize()
     assert got == blocks
+
+
+def test_whole_block_compaction_matches_plain(whole_stages):
+    """The compaction kernel at whole-block lane spans (the v1 compaction)."""
+    _, _, plan, t, recs, counts, crec, lane_out = whole_stages
+    assert plan.rng == 0 and len(plan.range_span) == 3
+    crec_p, lane_out_p = tec.compact_records_plain(
+        recs, counts, t["lane_start"], t["lane_len"], t["lane_lo"],
+        t["lane_hi"])
+    assert torch.equal(lane_out, lane_out_p)
+    assert torch.equal(crec, crec_p)
+
+
+def test_block_executor_matches_plain(whole_stages):
+    blocks, segs, plan, t, _, _, crec, lane_out = whole_stages
+    first = tec.range_firsts(lane_out, crec.shape[1], t["range_lane"])
+    args = (crec, first, t["range_out"], t["range_span"], t["comp"],
+            plan.total_out)
+    out = teb.execute_blocks(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, teb.execute_blocks_plain(*args))
+    got = teb.decode_blocks_whole(segs, [len(b) for b in blocks], 4096,
+                                  "cuda")
+    torch.cuda.synchronize()
+    assert got == blocks
+
+
+def test_dense_compaction_matches_plain(stages):
+    _, _, _, t, recs, counts, crec, lane_out = stages
+    args = (recs, counts, t["lane_start"], t["lane_len"])
+    drec, lane_out_d = tec.compact_records_dense(*args)
+    drec_p, lane_out_p = tec.compact_records_dense_plain(*args)
+    assert torch.equal(lane_out_d, lane_out_p)
+    assert torch.equal(drec, drec_p)
+    assert torch.equal(drec, crec[1:])  # a valid stream: same records
+
+
+def test_scheduled_executor_matches_plain(stages):
+    blocks, segs, plan, t, recs, counts, crec, lane_out = stages
+    drec, _ = tec.compact_records_dense(recs, counts, t["lane_start"],
+                                        t["lane_len"])
+    first = tec.range_firsts(lane_out, drec.shape[1], t["range_lane"])
+    common = (first, t["range_out"], t["range_span"], t["comp"],
+              plan.total_out, plan.max_span)
+    out = tec.execute_scheduled(drec, *common)
+    torch.cuda.synchronize()
+    assert torch.equal(out, tec.execute_scheduled_plain(drec, *common))
+    assert torch.equal(out, tec.execute_ranges(crec, *common))
+    got = tec.decode_blocks_chained(segs, [len(b) for b in blocks], 4096,
+                                    RANGE, "cuda", executor="scheduled")
+    torch.cuda.synchronize()
+    assert got == blocks
+
+
+def test_hostile_records_kernels_match_plain():
+    """Random int32 records, as no compaction would leave them: the
+    append-only kernel and the dense compaction clamp as their plain
+    versions do, with no fault."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    g = np.random.default_rng(5)
+    n, R, span = 5000, 7, 8192
+    info = np.iinfo(np.int32)
+    drec = g.integers(info.min, info.max, (4, n), dtype=np.int64)
+    tame = g.random((4, n)) < 0.9
+    drec = np.where(tame, g.integers(-2, 60, (4, n)), drec).astype(np.int32)
+    comp = torch.from_numpy(g.integers(0, 256, 3000, dtype=np.uint8))
+    cuts = np.sort(g.integers(0, n, R - 1))
+    first = torch.tensor([0, *cuts, n], dtype=torch.int64)
+    r_out = torch.arange(R, dtype=torch.int64) * span
+    r_span = torch.full((R,), span, dtype=torch.int32)
+    r_span[-1] = 100
+    # The ranges tile the output: bytes outside every range are not written.
+    args = (first, r_out, r_span, comp, (R - 1) * span + 100, span)
+    out = tec.execute_scheduled(torch.from_numpy(drec).cuda(),
+                                *(a.cuda() if torch.is_tensor(a) else a
+                                  for a in args))
+    torch.cuda.synchronize()
+    want = tec.execute_scheduled_plain(torch.from_numpy(drec), *args)
+    assert torch.equal(out.cpu(), want)
+
+    lanes = 40
+    lane_len = torch.from_numpy(g.integers(0, 200, lanes).astype(np.int32))
+    lane_start = (torch.cumsum(lane_len, 0) - lane_len).to(torch.int32)
+    slots = int(lane_len.sum()) + lanes
+    recs = np.where(g.random((7, slots)) < 0.8,
+                    g.integers(-3, 300, (7, slots)),
+                    g.integers(info.min, info.max, (7, slots),
+                               dtype=np.int64)).astype(np.int32)
+    counts = torch.from_numpy(
+        g.integers(0, lane_len.numpy() + 2).astype(np.int32))
+    cargs = (torch.from_numpy(recs), counts, lane_start, lane_len)
+    drec_k, off_k = tec.compact_records_dense(*(a.cuda() for a in cargs))
+    torch.cuda.synchronize()
+    drec_p, off_p = tec.compact_records_dense_plain(*cargs)
+    assert torch.equal(drec_k.cpu(), drec_p) and torch.equal(off_k.cpu(),
+                                                             off_p)
 
 
 def test_greedy_kernel_matches_plain():

@@ -13,7 +13,7 @@ from minlz_tpu.oracle import decode as odec
 from minlz_tpu.oracle import encode as oenc
 from minlz_tpu_torch.ops import exec_chain as tec
 from minlz_tpu_torch.ops.device_codec import (
-    RANGE, DeviceCodec, parse_hints, split_body)
+    RANGE, DeviceCodec, marshal_hints, parse_hints, split_body)
 from minlz_tpu_torch.ops.encode_kernel import encode_block_device
 from minlz_tpu_torch.ops.parse import parse_segments
 
@@ -177,8 +177,9 @@ def test_two_blocks_match_jax_executor(twain):
 
 
 def _check_clamps(plan, crec, first):
-    """Compaction's guarantees: every record lies inside its range span,
-    and a range's records move forward without overlapping."""
+    """Compaction's guarantees: every record lies inside its range span
+    (a whole block on the whole-block road), and a range's records move
+    forward without overlapping."""
     pos, llen, clen, csrc, lit = crec.to(torch.int64)
     assert bool((csrc >= 1).all())
     assert bool(((lit >= 0) & (lit <= len(plan.comp))).all())
@@ -194,7 +195,8 @@ def _check_clamps(plan, crec, first):
 def test_fuzz_mutated_hints_and_body():
     """Mutated hint payloads and block bodies through the port's decoder:
     CorruptError or bytes, never anything else; the compaction clamps hold
-    on every mutated batch."""
+    on every mutated batch, on the range road and on the whole-block road
+    (well-formed hints without a usable range clamp)."""
     from test_fuzz import _gen_input, _mutate
 
     rng = np.random.default_rng(0xBEEF)
@@ -205,7 +207,7 @@ def test_fuzz_mutated_hints_and_body():
     body = block[pos:]
     assert dc.decode(body, hints, want) == base
 
-    decoded = 0
+    decoded = whole = 0
     for _ in range(24):
         badh, badb = _mutate(rng, hints), _mutate(rng, body)
         try:
@@ -216,12 +218,12 @@ def test_fuzz_mutated_hints_and_body():
             got = dc.decode(badb, badh, want)
         except CorruptError:
             continue
-        except NotImplementedError:
-            assert hrng == 0  # well-formed hints without a range clamp
-            continue
         assert isinstance(got, bytes) and len(got) == want
         decoded += 1
         segs = split_body(badb, offs)
+        if not DeviceCodec._chained_ok(seg, hrng, want):
+            hrng = 0
+            whole += 1
         plan = tec.plan_batch([segs], seg, hrng)
         t = plan.tensors("cpu")
         recs, counts = parse_segments(t["comp"], t["lane_start"],
@@ -230,5 +232,26 @@ def test_fuzz_mutated_hints_and_body():
             recs, counts, t["lane_start"], t["lane_len"], t["lane_lo"],
             t["lane_hi"])
         _check_clamps(plan, crec,
-                      tec.range_firsts(lane_out, crec.shape[1], plan.spr))
+                      tec.range_firsts(lane_out, crec.shape[1],
+                                       t["range_lane"]))
     assert decoded >= 3
+
+    # The same mutated bodies under well-formed hints without a clamp.
+    v1 = marshal_hints(parse_hints(hints)[0],
+                       [(o, 0) for o in parse_hints(hints)[1]], 0)
+    assert dc.decode(body, v1, want) == base
+    for _ in range(6):
+        badb = _mutate(rng, body)
+        got = dc.decode(badb, v1, want)
+        assert isinstance(got, bytes) and len(got) == want
+        seg, offs, _ = parse_hints(v1)
+        plan = tec.plan_batch([split_body(badb, offs)], seg, 0)
+        t = plan.tensors("cpu")
+        recs, counts = parse_segments(t["comp"], t["lane_start"],
+                                      t["lane_len"])
+        crec, lane_out = tec.compact_records(
+            recs, counts, t["lane_start"], t["lane_len"], t["lane_lo"],
+            t["lane_hi"])
+        _check_clamps(plan, crec,
+                      tec.range_firsts(lane_out, crec.shape[1],
+                                       t["range_lane"]))

@@ -32,7 +32,9 @@ assert not foreign, foreign
 for wanted in ("minlz_tpu_torch.stream.writer", "minlz_tpu_torch.ops.emit",
                "minlz_tpu_torch.ops.greedy", "minlz_tpu_torch.native.codec",
                "minlz_tpu_torch.oracle.encode", "minlz_tpu_torch.corpus",
-               "minlz_tpu_torch.entry", "minlz_tpu_torch.testing"):
+               "minlz_tpu_torch.entry", "minlz_tpu_torch.testing",
+               "minlz_tpu_torch.ops.exec_block",
+               "minlz_tpu_torch.ops.decode_kernel"):
     assert wanted in names, wanted
 print("clean", len(names))
 """

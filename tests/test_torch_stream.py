@@ -135,9 +135,6 @@ def test_unported_options_raise():
     dc = tdc.DeviceCodec("cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dc.encode_batch_mesh(None, [b"x"])
-    v1 = tdc.marshal_hints(4096, [(0, 0)], 0)
-    with pytest.raises(NotImplementedError, match="v1"):
-        dc.decode(b"\x00" * 10, v1, 100)
 
 
 def test_host_only_reader_and_writer(corpus):
