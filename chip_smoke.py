@@ -12,13 +12,19 @@ without the encoder's range clamp, so that the Reader decodes every block on
 the whole-block road).  The fourth sends the clamped stream's blocks through
 decode_blocks_chained(executor="scheduled"), the append-only road.  One
 8 MiB block (16 KiB segments) goes through Writer and Reader and through
-decode_block_whole.  Then it times each phase.  It imports nothing of jax or
-of the JAX package.  Prints a JSON line of kernel results, then, as its last
+decode_block_whole.  The five probe kernels (ops/probe.py) are held against
+their plain versions at their scripts' default sizes and then driven through
+the port's measurement scripts (kernel_probe, exec_probe body, ablate_exec),
+whose lines are printed as "time probe ..."; minlz_tpu_torch.bench.main runs
+at 8 MiB and profile_decode prints each decode kernel's time alone beside its
+wrapper's.  Then it times each phase.  It imports nothing of jax or of the
+JAX package.  Prints a JSON line of kernel results, then, as its last
 line, {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 
     python3 chip_smoke.py
 """
 
+import contextlib
 import io
 import json
 import os
@@ -42,6 +48,15 @@ REPEATS = 5
 
 HOSTILE_LANES = 4096    # random int32 proposals for the greedy kernel
 FOREIGN = ("jax", "jaxlib", "bench", "minlz_tpu")
+BENCH_MB = 8            # minlz_tpu_torch.bench.main's corpus
+# The probe scripts' default sweeps (scripts/kernel_probe.py, exec_probe.py
+# and ablate_exec.py of the port): (rows of the buffer, where it is walked).
+PROBE_SPACES = (("shared", 256), ("global", 4096))
+SCALAR_STEPS, SCALAR_CHAINS = 8192, (1, 2, 4, 8, 16)
+BODY_STEPS, BODY_CHAINS = 4096, (1, 8, 16, 32)
+GATHER_TABLES = ((512, 1), (512, 2), (512, 4), (256, 9))  # (iters, 4 KiB)
+TAA_ITERS = 2048
+ABLATE_RECORDS, ABLATE_CHAINS, ABLATE_ROWS = 4096, (8, 16), 128
 
 # Published peaks of one H100 SXM: device memory rate, and the float32 rate
 # outside the tensor cores, taken as the rate of scalar int32 arithmetic.
@@ -74,6 +89,19 @@ KERNELS = {
     "exec_sched": ("minlz_tpu_torch/csrc/exec_range.cu",
                    "minlz_tpu/ops/exec_chain.py:438", "exec_sched",
                    "scheduled"),
+    # The probe kernels run on the "probes" path: the port's measurement
+    # scripts at their default sizes.
+    "probe_scalar": ("minlz_tpu_torch/csrc/probe.cu",
+                     "scripts/kernel_probe.py:29", "probe_scalar", "probes"),
+    "probe_gather": ("minlz_tpu_torch/csrc/probe.cu",
+                     "scripts/kernel_probe.py:77", "probe_gather", "probes"),
+    "probe_taa": ("minlz_tpu_torch/csrc/probe.cu",
+                  "scripts/kernel_probe.py:124", "probe_taa", "probes"),
+    "probe_chain_body": ("minlz_tpu_torch/csrc/probe.cu",
+                         "scripts/exec_probe.py:85", "probe_chain_body",
+                         "probes"),
+    "ablate_exec": ("minlz_tpu_torch/csrc/ablate.cu",
+                    "scripts/ablate_exec.py:38", "ablate_exec", "probes"),
 }
 BIG_BLOCK = 8 * MB      # the format's largest block: 16 KiB segments
 
@@ -246,6 +274,108 @@ def round_trip(label, corpus, dev, clamp=True, block_size=MB,
         f"bytes (ratio {len(stream) / len(corpus):.4f}); {n} of {n} blocks "
         f"encoded and {n} of {n} decoded on the device; launches {launches}")
     return launches, len(stream)
+
+
+def run_script(main_fn, argv, prefix):
+    """Run a measurement script's main(argv) and print its lines behind
+    ``prefix``.  Any failure raises."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    for line in buf.getvalue().splitlines():
+        log(f"{prefix}{line}")
+    if rc != 0:
+        raise AssertionError(f"{prefix.strip()} {argv} returned {rc}")
+
+
+def compare_probes(dev, card):
+    """Each probe kernel against its plain version on the card, the whole
+    buffer, at its script's default size, on seeded non-zero data.  Returns
+    (max abs err, kernel ms, plain ms, bound) per kernel; the times and the
+    bound are of the largest configuration of each."""
+    from minlz_tpu_torch.ops import probe
+
+    def to_dev(arrays):
+        return tuple(torch.from_numpy(a).to(dev) for a in arrays)
+
+    err, k_ms, plain_ms, bounds = {}, {}, {}, {}
+
+    def held(name, label, kernel_fn, plain_fn, timed, n_bytes, n_ops):
+        got = kernel_fn()
+        torch.cuda.synchronize()
+        want, p_ms = once_ms(plain_fn)
+        err[name] = max(err.get(name, 0),
+                        require_equal(f"{name} ({label})", got, want))
+        if timed:
+            k_ms[name] = cuda_ms(kernel_fn)
+            plain_ms[name] = p_ms
+            bounds[name] = bound(n_bytes, n_ops)
+
+    for space, rows in PROBE_SPACES:
+        for c in SCALAR_CHAINS:
+            steps, buf = to_dev(probe.scalar_inputs(SCALAR_STEPS, c, rows,
+                                                    fill=True))
+            # Step list and buffer in, buffer out; one add per word moved.
+            held("probe_scalar", f"{c} chains, {space}",
+                 lambda: probe.probe_scalar(steps, buf, c, space),
+                 lambda: probe.probe_scalar_plain(steps, buf, c),
+                 (space, c) == ("global", SCALAR_CHAINS[-1]),
+                 4 * steps.numel() + 8 * buf.numel(),
+                 128 * SCALAR_STEPS * c)
+        for c in BODY_CHAINS:
+            meta, buf = to_dev(probe.chain_body_inputs(BODY_STEPS, c, rows,
+                                                       fill=True))
+            for mode in ("minimal", "realign"):
+                # About 6 operations a word: select, four mask tests, and.
+                held("probe_chain_body", f"{c} chains, {mode}, {space}",
+                     lambda: probe.probe_chain_body(meta, buf, c, mode,
+                                                    space),
+                     lambda: probe.probe_chain_body_plain(meta, buf, c,
+                                                          mode),
+                     (space, c, mode) == ("global", BODY_CHAINS[-1],
+                                          "realign"),
+                     4 * meta.numel() + 8 * buf.numel(),
+                     6 * 128 * BODY_STEPS * c)
+    log(f"probe_scalar == plain version (tolerance 0, whole buffer) at "
+        f"{SCALAR_STEPS} steps x {SCALAR_CHAINS} chains, and "
+        f"probe_chain_body at {BODY_STEPS} steps x {BODY_CHAINS} chains x "
+        f"(minimal, realign), each on {PROBE_SPACES}: compared and timed at "
+        f"the same, full size")
+    for iters, vregs in GATHER_TABLES:
+        tbl, idx = to_dev(probe.gather_inputs(iters, vregs, wrap=True))
+        held("probe_gather", f"{vregs * 1024} words",
+             lambda: probe.probe_gather(tbl, idx),
+             lambda: probe.probe_gather_plain(tbl, idx),
+             vregs == GATHER_TABLES[-1][1],
+             4 * (tbl.numel() + idx.numel() + 1024), 2 * idx.numel())
+    a, idx = to_dev(probe.taa_inputs(TAA_ITERS, wrap=True))
+    # Four shuffles, three selects and an add per element.
+    held("probe_taa", f"{TAA_ITERS} iterations",
+         lambda: probe.probe_taa(a, idx),
+         lambda: probe.probe_taa_plain(a, idx), True,
+         4 * (a.numel() + idx.numel() + 1024), 8 * idx.numel())
+    log(f"probe_gather == plain version (tolerance 0) on tables of "
+        f"{[v * 1024 for _, v in GATHER_TABLES]} words and probe_taa on "
+        f"{TAA_ITERS} x 1024 in-row gathers, int32 sums that wrap")
+    for variant in probe.VARIANTS:
+        for c in ABLATE_CHAINS:
+            counts, ops, arena = to_dev(probe.ablate_inputs(
+                c, ABLATE_RECORDS, ABLATE_ROWS, fill=True))
+            moved = int(((ops[..., 0] & 0x3FFF)
+                         + ((ops[..., 0] >> 14) & 0x3FFF)).sum())
+            # Records and arena in, arena out; two operations a byte moved.
+            held("ablate_exec", f"{variant}, {c} chains",
+                 lambda: probe.ablate_exec(counts, ops, arena, variant,
+                                           chain_rows=ABLATE_ROWS),
+                 lambda: probe.ablate_exec_plain(counts, ops, arena, variant,
+                                                 chain_rows=ABLATE_ROWS),
+                 (variant, c) == ("full", ABLATE_CHAINS[0]),
+                 4 * (counts.numel() + ops.numel() + 2 * arena.numel()),
+                 2 * moved)
+    log(f"ablate_exec == plain version (tolerance 0, whole arena) in "
+        f"{probe.VARIANTS} at {ABLATE_RECORDS} records x {ABLATE_CHAINS} "
+        f"chains: compared and timed at the same, full size  [{card}]")
+    return err, k_ms, plain_ms, bounds
 
 
 def main():
@@ -584,7 +714,7 @@ def main():
     del back, sched_items
 
     for name, (_, _, count, path) in KERNELS.items():
-        if path_launches[path][count] <= 0:
+        if path != "probes" and path_launches[path][count] <= 0:
             raise AssertionError(f"kernel {name} never ran on the {path} "
                                  f"path")
     for path in ("serializer", "device_emit"):
@@ -640,6 +770,58 @@ def main():
     log(f"encode_block_device(serializer=\"greedy\"): 1 MiB -> "
         f"{len(gblock)} bytes, {len(ghints)} segments, decoded by the "
         f"oracle (serializer=\"native\": {len(nblock)} bytes)")
+
+    # ---- 7b. the probe kernels against their plain versions --------------
+    p_err, p_ms, p_plain, p_bounds = compare_probes(dev, card)
+    err.update(p_err)
+    k_ms.update(p_ms)
+    plain_ms.update(p_plain)
+    bounds.update(p_bounds)
+
+    # ---- 7c. the probes path: the port's measurement scripts --------------
+    from minlz_tpu_torch import bench as tbench
+    from minlz_tpu_torch.scripts import (ablate_exec, exec_probe,
+                                         kernel_probe, profile_decode)
+
+    _build.reset_launches()
+    run_script(kernel_probe.main, [], "time probe ")
+    run_script(exec_probe.main, ["body"], "time probe ")
+    run_script(ablate_exec.main, [], "time probe ")
+    torch.cuda.synchronize()
+    path_launches["probes"] = _build.launch_counts()
+    for name, (_, _, count, path) in KERNELS.items():
+        if path == "probes" and path_launches["probes"][count] <= 0:
+            raise AssertionError(f"kernel {name} never ran on the probes "
+                                 f"path")
+    for count in ("parse", "compact", "exec_range", "exec_block", "greedy"):
+        if path_launches["probes"][count] != 0:
+            raise AssertionError(f"the probes path launched {count}")
+    log(f"main path (probes): kernel_probe, exec_probe body and ablate_exec "
+        f"at their default sizes; launches {path_launches['probes']}")
+    per_range, per_block = n_recs / n_ranges, n_recs_w / BATCH_BLOCKS
+    log(f"time probe executors, for the distance to the bare chains: K3 "
+        f"exec_range {k_ms['exec_range'] * 1e6 / per_range:.1f} ns/record "
+        f"of a range ({per_range:.0f} records a range, staged in shared "
+        f"memory), exec_block {k_ms['exec_block'] * 1e6 / per_block:.1f} "
+        f"ns/record of a block ({per_block:.0f} records a block, in device "
+        f"memory), exec_sched {k_ms['exec_sched'] * 1e6 / per_range:.1f} "
+        f"ns/record of a range  [{card}]")
+
+    # ---- 7d. the port's bench and the kernel-alone times --------------------
+    _build.reset_launches()
+    run_script(tbench.main, ["--mb", str(BENCH_MB)], "time bench: ")
+    path_launches["bench"] = _build.launch_counts()
+    for count in ("parse", "compact", "exec_range"):
+        if path_launches["bench"][count] <= 0:
+            raise AssertionError(f"bench.main never launched {count}")
+    run_script(profile_decode.main,
+               ["--road", "whole", "--blocks", str(BATCH_BLOCKS)],
+               "time alone: ")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        profile_decode.stage_times("range", BATCH_BLOCKS, dev)
+    for line in buf.getvalue().splitlines():
+        log(f"time alone: {line}")
 
     # ---- 8. times, for information ---------------------------------------
     enc_ms = cuda_ms(lambda: ek._find_matches_batch(
@@ -723,7 +905,16 @@ def main():
         f"{emit_peak / (1 << 20):.0f} MiB  [{card}]")
     shapes = {"greedy": "16 x 1 MiB batch",
               "exec_block": "8 x 1 MiB batch without the clamp",
-              "compact_whole": "8 x 1 MiB batch without the clamp"}
+              "compact_whole": "8 x 1 MiB batch without the clamp",
+              "probe_scalar": f"{SCALAR_STEPS} steps x "
+                              f"{SCALAR_CHAINS[-1]} chains, device memory",
+              "probe_gather": f"{GATHER_TABLES[-1][0]} x 1024 gathers from "
+                              f"{GATHER_TABLES[-1][1] * 1024} words",
+              "probe_taa": f"{TAA_ITERS} x 1024 in-row gathers",
+              "probe_chain_body": f"{BODY_STEPS} steps x {BODY_CHAINS[-1]} "
+                                  f"chains, realign, device memory",
+              "ablate_exec": f"full, {ABLATE_RECORDS} records x "
+                             f"{ABLATE_CHAINS[0]} chains"}
     for name in KERNELS:
         log(f"time kernel {name}: {k_ms[name]:.4f} ms, plain version "
             f"{plain_ms[name]:.4f} ms, bound {bounds[name][0]:.4f} ms by "

@@ -31,7 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # One count per kernel.  "compact" counts the positioned compaction at
 # range spans and at whole-block spans alike: it is one kernel.
 KERNELS = ("parse", "compact", "exec_range", "greedy", "exec_block",
-           "compact_dense", "exec_sched")
+           "compact_dense", "exec_sched", "probe_scalar", "probe_gather",
+           "probe_taa", "probe_chain_body", "ablate_exec")
 _launches = dict.fromkeys(KERNELS, 0)
 _lock = threading.Lock()
 _lib = None
@@ -60,6 +61,21 @@ _SIGNATURES = {
                           _P, ctypes.c_longlong, _P, _P],
     # off, len, lanes, seg, take, tok_off, tok_len, is_rep, stream
     "minlz_greedy": [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P],
+    # rows, n_ops, n_chains, n_rows, buf, shared, stream
+    "minlz_probe_scalar": [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
+                           ctypes.c_int, _P],
+    # meta, n_ops, n_chains, n_rows, buf, shared, realign, stream
+    "minlz_probe_chain_body": [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                               _P, ctypes.c_int, ctypes.c_int, _P],
+    # tbl, tbl_n, idx, n_iters, out, stream
+    "minlz_probe_gather": [_P, ctypes.c_int, _P, ctypes.c_int, _P, _P],
+    # a, idx, n_iters, out, stream
+    "minlz_probe_taa": [_P, _P, ctypes.c_int, _P, _P],
+    # counts, ops, cap, nchain, arena_in, out, n_rows, out_base_row,
+    # chain_rows, variant, stream
+    "minlz_ablate_exec": [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, _P],
 }
 
 

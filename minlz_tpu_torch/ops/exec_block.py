@@ -47,15 +47,23 @@ def execute_blocks(crec, block_first, block_out, block_span, comp,
     args = range_args("execute_blocks", crec, 5, block_first, block_out,
                       block_span, comp, total_out)
     out = torch.empty(total_out, dtype=torch.uint8, device=crec.device)
+    launch_blocks(args, out)
+    return out
+
+
+def launch_blocks(args, out):
+    """The bare launch of the whole-block executor.  args: what
+    ``range_args`` returned (records, block_first, block_out, block_span,
+    comp); ``out`` [total_out] uint8 is written in place.  No check, no
+    allocation, no read back; measurements time this."""
     lib = _build.load()
     _build.check(lib, lib.minlz_exec_blocks(
-        args[0].data_ptr(), ctypes.c_longlong(crec.shape[1]),
+        args[0].data_ptr(), ctypes.c_longlong(args[0].shape[1]),
         args[1].data_ptr(), args[2].data_ptr(), args[3].data_ptr(),
-        block_span.numel(), args[4].data_ptr(),
-        ctypes.c_longlong(comp.numel()), out.data_ptr(),
-        _build.stream_of(crec)))
+        args[3].numel(), args[4].data_ptr(),
+        ctypes.c_longlong(args[4].numel()), out.data_ptr(),
+        _build.stream_of(args[0])))
     _build.count_launch(KERNEL)
-    return out
 
 
 def execute_blocks_plain(crec, block_first, block_out, block_span, comp,
@@ -68,13 +76,14 @@ def execute_blocks_plain(crec, block_first, block_out, block_span, comp,
                                 comp, total_out, max(max_span, 0))
 
 
-def decode_planned_whole(plan, device="cuda"):
+def decode_planned_whole(plan, device="cuda", tensors: dict | None = None):
     """Run parse -> compact -> execute for a whole-block plan
     (``plan_batch(..., rng=0)``) on ``device``; returns the batch's decoded
-    bytes as a [plan.total_out] uint8 tensor there."""
+    bytes as a [plan.total_out] uint8 tensor there.  ``tensors`` as for
+    ``exec_chain.decode_planned``."""
     if plan.rng:
         raise ValueError("not a whole-block plan")
-    t = plan.tensors(device)
+    t = plan.tensors(device) if tensors is None else tensors
     recs, counts = parse_segments(t["comp"], t["lane_start"], t["lane_len"])
     crec, lane_out = compact_records(recs, counts, t["lane_start"],
                                      t["lane_len"], t["lane_lo"],

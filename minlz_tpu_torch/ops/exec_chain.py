@@ -205,13 +205,24 @@ def compact_records(recs, counts, lane_start, lane_len, lane_lo, lane_hi):
                                      lane_out, lane_lo, lane_hi)]
     _check_lanes("compact_records", dev, args,
                  (_I32, _I32, _I32, _I32, _I64, _I32, _I32))
-    lib = _build.load()
-    _build.check(lib, lib.minlz_compact(
-        args[0].data_ptr(), ctypes.c_longlong(recs.shape[1]),
-        *(a.data_ptr() for a in args[1:]), lane_len.numel(),
-        out.data_ptr(), ctypes.c_longlong(total), _build.stream_of(recs)))
-    _build.count_launch(COMPACT)
+    launch_compact(COMPACT, args, out)
     return out, lane_out
+
+
+def launch_compact(kernel: str, args, out):
+    """The bare launch of a compaction kernel, ``COMPACT`` or
+    ``COMPACT_DENSE``.  args: the checked, contiguous CUDA tensors (recs,
+    lane_start, lane_len, counts, lane_out[, lane_lo, lane_hi]); ``out``
+    [5 or 4, total] is written in place.  No check, no allocation, no read
+    back; measurements time this."""
+    lib = _build.load()
+    fn = lib.minlz_compact if kernel == COMPACT else lib.minlz_compact_dense
+    _build.check(lib, fn(
+        args[0].data_ptr(), ctypes.c_longlong(args[0].shape[1]),
+        *(a.data_ptr() for a in args[1:]), args[2].numel(),
+        out.data_ptr(), ctypes.c_longlong(out.shape[1]),
+        _build.stream_of(args[0])))
+    _build.count_launch(kernel)
 
 
 def compact_records_plain(recs, counts, lane_start, lane_len, lane_lo,
@@ -269,12 +280,7 @@ def compact_records_dense(recs, counts, lane_start, lane_len):
                                      lane_out)]
     _check_lanes("compact_records_dense", dev, args,
                  (_I32, _I32, _I32, _I32, _I64))
-    lib = _build.load()
-    _build.check(lib, lib.minlz_compact_dense(
-        args[0].data_ptr(), ctypes.c_longlong(recs.shape[1]),
-        *(a.data_ptr() for a in args[1:]), lane_len.numel(),
-        out.data_ptr(), ctypes.c_longlong(total), _build.stream_of(recs)))
-    _build.count_launch(COMPACT_DENSE)
+    launch_compact(COMPACT_DENSE, args, out)
     return out, lane_out
 
 
@@ -341,15 +347,24 @@ def execute_ranges(crec, range_first, range_out, range_span, comp,
     args = range_args("execute_ranges", crec, 5, range_first, range_out,
                       range_span, comp, total_out)
     out = torch.empty(total_out, dtype=torch.uint8, device=crec.device)
-    lib = _build.load()
-    _build.check(lib, lib.minlz_exec_ranges(
-        args[0].data_ptr(), ctypes.c_longlong(crec.shape[1]),
-        args[1].data_ptr(), args[2].data_ptr(), args[3].data_ptr(),
-        range_span.numel(), max_span, args[4].data_ptr(),
-        ctypes.c_longlong(comp.numel()), out.data_ptr(),
-        _build.stream_of(crec)))
-    _build.count_launch(EXEC)
+    launch_execute(EXEC, args, max_span, out)
     return out
+
+
+def launch_execute(kernel: str, args, max_span: int, out):
+    """The bare launch of a range executor, ``EXEC`` or ``EXEC_SCHED``.
+    args: what ``range_args`` returned (records, range_first, range_out,
+    range_span, comp); ``out`` [total_out] uint8 is written in place.  No
+    check, no allocation, no read back; measurements time this."""
+    lib = _build.load()
+    fn = lib.minlz_exec_ranges if kernel == EXEC else lib.minlz_exec_sched
+    _build.check(lib, fn(
+        args[0].data_ptr(), ctypes.c_longlong(args[0].shape[1]),
+        args[1].data_ptr(), args[2].data_ptr(), args[3].data_ptr(),
+        args[3].numel(), max_span, args[4].data_ptr(),
+        ctypes.c_longlong(args[4].numel()), out.data_ptr(),
+        _build.stream_of(args[0])))
+    _build.count_launch(kernel)
 
 
 def execute_ranges_plain(crec, range_first, range_out, range_span, comp,
@@ -433,14 +448,7 @@ def execute_scheduled(drec, range_first, range_out, range_span, comp,
     args = range_args("execute_scheduled", drec, 4, range_first, range_out,
                       range_span, comp, total_out)
     out = torch.empty(total_out, dtype=torch.uint8, device=drec.device)
-    lib = _build.load()
-    _build.check(lib, lib.minlz_exec_sched(
-        args[0].data_ptr(), ctypes.c_longlong(drec.shape[1]),
-        args[1].data_ptr(), args[2].data_ptr(), args[3].data_ptr(),
-        range_span.numel(), max_span, args[4].data_ptr(),
-        ctypes.c_longlong(comp.numel()), out.data_ptr(),
-        _build.stream_of(drec)))
-    _build.count_launch(EXEC_SCHED)
+    launch_execute(EXEC_SCHED, args, max_span, out)
     return out
 
 
@@ -478,15 +486,19 @@ def execute_scheduled_plain(drec, range_first, range_out, range_span, comp,
 EXECUTORS = ("fast", "scheduled")
 
 
-def decode_planned(plan: BatchPlan, device="cuda", executor: str = "fast"):
+def decode_planned(plan: BatchPlan, device="cuda", executor: str = "fast",
+                   tensors: dict | None = None):
     """Run parse -> compact -> execute for a plan on ``device``; returns the
-    batch's decoded bytes as a [plan.total_out] uint8 tensor there."""
+    batch's decoded bytes as a [plan.total_out] uint8 tensor there.
+    ``tensors``: the plan's arrays already on the device
+    (``plan.tensors(device)``), for a caller that decodes one plan many
+    times; by default they are copied there now."""
     if executor not in EXECUTORS:
         raise ValueError(f"executor must be one of {EXECUTORS}")
     if not 0 < plan.rng <= RANGE:
         raise ValueError(f"the range executors stage at most {RANGE} bytes "
                          f"and no whole block")
-    t = plan.tensors(device)
+    t = plan.tensors(device) if tensors is None else tensors
     recs, counts = parse_segments(t["comp"], t["lane_start"], t["lane_len"])
     if executor == "fast":
         crec, lane_out = compact_records(recs, counts, t["lane_start"],

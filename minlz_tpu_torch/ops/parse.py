@@ -66,16 +66,22 @@ def parse_segments(comp, lane_start, lane_len):
     recs = torch.zeros((N_FIELDS, slots), dtype=torch.int32,
                        device=comp.device)
     counts = torch.zeros(lanes, dtype=torch.int32, device=comp.device)
-    comp = comp.contiguous()
-    lane_start = lane_start.contiguous()
-    lane_len = lane_len.contiguous()
+    launch_parse(comp.contiguous(), lane_start.contiguous(),
+                 lane_len.contiguous(), recs, counts)
+    return recs, counts
+
+
+def launch_parse(comp, lane_start, lane_len, recs, counts):
+    """The bare launch of the parse kernel: checked, contiguous CUDA
+    tensors in, ``recs`` [7, n + lanes] and ``counts`` [lanes] written in
+    place (the kernel leaves unused slots as they are: zero them once).
+    No check, no allocation, no read back; measurements time this."""
     lib = _build.load()
     _build.check(lib, lib.minlz_parse(
-        comp.data_ptr(), lane_start.data_ptr(), lane_len.data_ptr(), lanes,
-        recs.data_ptr(), ctypes.c_longlong(slots), counts.data_ptr(),
-        _build.stream_of(comp)))
+        comp.data_ptr(), lane_start.data_ptr(), lane_len.data_ptr(),
+        lane_len.numel(), recs.data_ptr(), ctypes.c_longlong(recs.shape[1]),
+        counts.data_ptr(), _build.stream_of(comp)))
     _build.count_launch(KERNEL)
-    return recs, counts
 
 
 def parse_segments_plain(comp, lane_start, lane_len):

@@ -1,0 +1,542 @@
+"""Probe kernels: microbenchmarks of the primitives the decode executors
+are built from, and of the executor's per-record step.
+
+The counterparts of the five Pallas kernels in the JAX package's
+``scripts/kernel_probe.py`` (``bench_scalar``, ``bench_gather``,
+``bench_taa``), ``scripts/exec_probe.py`` (``bench_chain_body``) and
+``scripts/ablate_exec.py`` (``run``).  Each is a function of its inputs and
+returns its whole buffer (the JAX kernels of the two chain probes return
+row 0 only):
+
+* ``probe_scalar``: ``n_chains`` serial chains of steps
+  ``buf[dst] = buf[src] + 1`` on rows of 128 int32;
+* ``probe_gather``: ``out = sum_i tbl.flat[idx[i]]`` over [8, 128] index
+  blocks, int32 wrap, the table in shared memory;
+* ``probe_taa``: ``out[r, l] = sum_i a[r, idx[8 i + r, l]]``, the gather
+  inside a row of 128, by warp shuffles;
+* ``probe_chain_body``: per step, the 128-word window at a byte offset of
+  two joined rows, masked to 64 bytes, stored to a third row;
+* ``ablate_exec``: ``nchain`` synthetic LZ record chains over one arena, in
+  five variants (``csrc/ablate.cu`` defines them).
+
+Each wrapper launches its CUDA kernel (``csrc/probe.cu``,
+``csrc/ablate.cu``) for CUDA tensors and runs its plain torch version, in
+this module, for CPU tensors.  The ``*_inputs`` functions build, with numpy
+and the JAX scripts' seeds and call order, the arrays those scripts build
+for the same arguments; ``fill`` / ``wrap`` swap the scripts' all-zero (or
+small) data for seeded non-zero (or full-range) data, on which a comparison
+shows something.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _build
+
+_I32 = torch.int32
+_I64 = torch.int64
+ROW_WORDS = 128
+ROW_B = 512
+GATHER_ELEMS = 8 * ROW_WORDS
+# Dynamic shared memory one thread block can use on Hopper.
+SHARED_LIMIT = 232448
+MAX_CHAINS = 32             # one warp per chain, one thread block
+SPACES = ("shared", "global")
+# The JAX probe's "taa" and "roll" realign the window in two ways and give
+# the same words: both are "realign" here.
+MODES = {"minimal": 0, "realign": 1, "taa": 1, "roll": 1}
+VARIANTS = ("full", "onewin", "norealign", "nomask", "minimal")
+
+
+def _wrap32(x):
+    """int64 -> int32 with two's-complement wrap."""
+    return (((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(_I32)
+
+
+def _check_i32(name, t, dim, device=None):
+    if t.dtype != _I32 or t.dim() != dim or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {dim}-D int32 tensor")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def _on_card(name, t) -> bool:
+    """False for a CPU tensor (plain version), True for a CUDA tensor."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"no {name} kernel for device {t.device}")
+    return True
+
+
+# --------------------------------------------------------------------------
+# Chains of dependent row moves: probe_scalar, probe_chain_body
+# --------------------------------------------------------------------------
+
+def _check_chain(name, steps, per_step, buf, n_chains, space):
+    _check_i32("steps", steps, 1)
+    _check_i32("buf", buf, 2, steps.device)
+    if buf.shape[1] != ROW_WORDS or buf.shape[0] < 1:
+        raise ValueError(f"buf must be [rows, {ROW_WORDS}]")
+    if not 1 <= n_chains <= MAX_CHAINS:
+        raise ValueError(f"{name} walks 1..{MAX_CHAINS} chains, one warp "
+                         f"each")
+    if steps.numel() % (per_step * n_chains):
+        raise ValueError(f"steps must hold n_chains * n_ops * {per_step} "
+                         f"entries")
+    if space not in SPACES:
+        raise ValueError(f"space must be one of {SPACES}")
+    if space == "shared" and buf.numel() * 4 > SHARED_LIMIT:
+        raise ValueError(
+            f"buf of {buf.numel() * 4} bytes does not fit the "
+            f"{SHARED_LIMIT} bytes of shared memory a block can use")
+    return steps.numel() // (per_step * n_chains)
+
+
+def probe_scalar(rows, buf, n_chains: int, space: str = "global"):
+    """rows: [n_chains * n_ops * 2] int32, per chain and step (src, dst)
+    row numbers; buf: [n_rows, 128] int32.  Chain after chain (they must own
+    disjoint rows), step after step: ``buf[dst] = buf[src] + 1``.  Row
+    numbers are clamped into buf.  ``space``: where the kernel walks the
+    buffer, ``"shared"`` (staged in shared memory; it must fit) or
+    ``"global"`` (device memory).  Returns the walked buffer."""
+    n_ops = _check_chain("probe_scalar", rows, 2, buf, n_chains, space)
+    if not _on_card("probe_scalar", buf):
+        return probe_scalar_plain(rows, buf, n_chains)
+    out = buf.clone()
+    lib = _build.load()
+    with torch.cuda.device(buf.device):
+        _build.check(lib, lib.minlz_probe_scalar(
+            rows.data_ptr(), n_ops, n_chains, buf.shape[0], out.data_ptr(),
+            int(space == "shared"), _build.stream_of(buf)))
+    _build.count_launch("probe_scalar")
+    return out
+
+
+def probe_scalar_plain(rows, buf, n_chains: int):
+    """Plain torch version of ``probe_scalar`` (any device): a loop over the
+    steps, the chains side by side."""
+    n_ops = _check_chain("probe_scalar", rows, 2, buf, n_chains, "global")
+    steps = rows.reshape(n_chains, n_ops, 2).to(_I64).clamp(
+        0, buf.shape[0] - 1)
+    out = buf.clone()
+    for i in range(n_ops):
+        out[steps[:, i, 1]] = _wrap32(out[steps[:, i, 0]].to(_I64) + 1)
+    return out
+
+
+def _mask_table(device):
+    """[512, 128] int32: row ``off`` keeps bytes [off, min(off + 64, 512))
+    of a 512-byte row."""
+    p = np.arange(ROW_B)[None, :]
+    off = np.arange(ROW_B)[:, None]
+    keep = (p >= off) & (p < np.minimum(off + 64, ROW_B))
+    table = np.ascontiguousarray(np.where(keep, 0xFF, 0).astype(np.uint8))
+    return torch.from_numpy(table.view("<i4")).to(device)
+
+
+def probe_chain_body(meta, buf, n_chains: int, mode: str = "realign",
+                     space: str = "global"):
+    """meta: [n_chains * n_ops * 3] int32, per chain and step (src row, dst
+    row, byte offset, taken modulo 512); buf: [n_rows, 128] int32.  A step
+    joins rows src and src + 1, takes the 128-word window that starts at
+    word ``off >> 2`` (``mode="realign"``; the JAX probe's ``"taa"`` and
+    ``"roll"`` are this) or the word-wise sum of the two rows
+    (``"minimal"``), keeps bytes [off, min(off + 64, 512)), zeroes the rest
+    and stores the row to dst.  Row numbers are clamped into buf, src + 1
+    too.  ``space`` as for ``probe_scalar``.  Returns the walked buffer."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {tuple(MODES)}")
+    n_ops = _check_chain("probe_chain_body", meta, 3, buf, n_chains, space)
+    if not _on_card("probe_chain_body", buf):
+        return probe_chain_body_plain(meta, buf, n_chains, mode)
+    out = buf.clone()
+    lib = _build.load()
+    with torch.cuda.device(buf.device):
+        _build.check(lib, lib.minlz_probe_chain_body(
+            meta.data_ptr(), n_ops, n_chains, buf.shape[0], out.data_ptr(),
+            int(space == "shared"), MODES[mode], _build.stream_of(buf)))
+    _build.count_launch("probe_chain_body")
+    return out
+
+
+def probe_chain_body_plain(meta, buf, n_chains: int, mode: str = "realign"):
+    """Plain torch version of ``probe_chain_body`` (any device)."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {tuple(MODES)}")
+    n_ops = _check_chain("probe_chain_body", meta, 3, buf, n_chains,
+                         "global")
+    dev = buf.device
+    last = buf.shape[0] - 1
+    steps = meta.reshape(n_chains, n_ops, 3).to(_I64)
+    src = steps[..., 0].clamp(0, last)
+    src1 = (src + 1).clamp(max=last)
+    dst = steps[..., 1].clamp(0, last)
+    off = steps[..., 2] & (ROW_B - 1)
+    table = _mask_table(dev)
+    word = torch.arange(ROW_WORDS, device=dev)[None, :]
+    out = buf.clone()
+    for i in range(n_ops):
+        r0, r1 = out[src[:, i]], out[src1[:, i]]
+        if MODES[mode]:
+            w = torch.gather(torch.cat([r0, r1], 1), 1,
+                             word + (off[:, i] >> 2)[:, None])
+        else:
+            w = _wrap32(r0.to(_I64) + r1.to(_I64))
+        out[dst[:, i]] = w & table[off[:, i]]
+    return out
+
+
+# --------------------------------------------------------------------------
+# Gathers: probe_gather (shared memory), probe_taa (registers)
+# --------------------------------------------------------------------------
+
+def _check_idx(idx, device):
+    _check_i32("idx", idx, 2, device)
+    if idx.shape[1] != ROW_WORDS or idx.shape[0] % 8:
+        raise ValueError(f"idx must be [8 * n_iters, {ROW_WORDS}]")
+    return idx.shape[0] // 8
+
+
+def probe_gather(tbl, idx):
+    """tbl: [rows, 128] int32, at most 36 KiB; idx: [8 * n_iters, 128]
+    int32 flat indices into tbl, clamped into it.  Returns [8, 128] int32:
+    ``sum_i tbl.flat[idx[8 i : 8 i + 8]]`` with int32 wrap."""
+    _check_i32("tbl", tbl, 2)
+    n_iters = _check_idx(idx, tbl.device)
+    if tbl.shape[1] != ROW_WORDS or not 1 <= tbl.shape[0] <= 72:
+        raise ValueError("tbl must be [1..72, 128]")
+    if not _on_card("probe_gather", tbl):
+        return probe_gather_plain(tbl, idx)
+    out = torch.empty((8, ROW_WORDS), dtype=_I32, device=tbl.device)
+    lib = _build.load()
+    with torch.cuda.device(tbl.device):
+        _build.check(lib, lib.minlz_probe_gather(
+            tbl.data_ptr(), tbl.numel(), idx.data_ptr(), n_iters,
+            out.data_ptr(), _build.stream_of(tbl)))
+    _build.count_launch("probe_gather")
+    return out
+
+
+def probe_gather_plain(tbl, idx):
+    """Plain torch version of ``probe_gather`` (any device): an index and a
+    sum."""
+    picked = tbl.flatten()[idx.to(_I64).clamp(0, tbl.numel() - 1)]
+    return _wrap32(picked.reshape(-1, 8, ROW_WORDS).sum(0, dtype=_I64))
+
+
+def probe_taa(a, idx):
+    """a: [8, 128] int32; idx: [8 * n_iters, 128] int32 positions in a row,
+    clamped into 0..127.  Returns [8, 128] int32:
+    ``out[r, l] = sum_i a[r, idx[8 i + r, l]]`` with int32 wrap."""
+    _check_i32("a", a, 2)
+    n_iters = _check_idx(idx, a.device)
+    if a.shape != (8, ROW_WORDS):
+        raise ValueError("a must be [8, 128]")
+    if not _on_card("probe_taa", a):
+        return probe_taa_plain(a, idx)
+    out = torch.empty((8, ROW_WORDS), dtype=_I32, device=a.device)
+    lib = _build.load()
+    with torch.cuda.device(a.device):
+        _build.check(lib, lib.minlz_probe_taa(
+            a.data_ptr(), idx.data_ptr(), n_iters, out.data_ptr(),
+            _build.stream_of(a)))
+    _build.count_launch("probe_taa")
+    return out
+
+
+def probe_taa_plain(a, idx):
+    """Plain torch version of ``probe_taa`` (any device): a gather and a
+    sum."""
+    ix = idx.to(_I64).clamp(0, ROW_WORDS - 1).reshape(-1, 8, ROW_WORDS)
+    picked = torch.gather(a[None].expand(ix.shape[0], -1, -1), 2, ix)
+    return _wrap32(picked.sum(0, dtype=_I64))
+
+
+# --------------------------------------------------------------------------
+# The executor's per-record step: ablate_exec
+# --------------------------------------------------------------------------
+
+def _check_ablate(counts, ops, arena, variant, out_base_row, chain_rows):
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}")
+    _check_i32("ops", ops, 3)
+    _check_i32("counts", counts, 1, ops.device)
+    _check_i32("arena", arena, 2, ops.device)
+    nchain, cap = ops.shape[0], ops.shape[1]
+    if ops.shape[2] != 3 or counts.numel() != nchain:
+        raise ValueError("ops must be [nchain, cap, 3], counts [nchain]")
+    if not 1 <= nchain <= MAX_CHAINS:
+        raise ValueError(f"ablate_exec walks 1..{MAX_CHAINS} chains, one "
+                         f"warp each")
+    if chain_rows is None:
+        chain_rows = (arena.shape[0] - out_base_row - 2) // nchain
+    if (arena.shape[1] != ROW_WORDS or out_base_row < 0 or chain_rows < 1
+            or arena.shape[0] < out_base_row + nchain * chain_rows):
+        raise ValueError("arena must be [rows, 128] with out_base_row + "
+                         "nchain * chain_rows rows or more")
+    a = ops[..., 0].to(_I64)
+    live = torch.arange(cap, device=ops.device)[None, :] < counts[:, None]
+    need = torch.where(live, (a & 0x3FFF) + ((a >> 14) & 0x3FFF), 0).sum(1)
+    if nchain and int(need.max()) > chain_rows * ROW_B:
+        raise ValueError(
+            f"a chain writes {int(need.max())} bytes, more than its region "
+            f"of {chain_rows} rows ({chain_rows * ROW_B} bytes)")
+    return nchain, cap, chain_rows
+
+
+def ablate_exec(counts, ops, arena, variant: str = "full",
+                out_base_row: int = 8, chain_rows: int | None = None):
+    """counts: [nchain] int32 records per chain; ops: [nchain, cap, 3] int32
+    records (llen | clen << 14, copy offset, literal byte address); arena:
+    [rows, 128] int32, read as little-endian bytes: literal bytes in rows
+    0..out_base_row-1, then ``chain_rows`` rows per chain (by default the
+    rows left but the last two, shared out evenly).  Every chain appends its records to its
+    region, in the given ``variant`` (``csrc/ablate.cu`` defines the five).
+    A read of the chain's own region sees the chain's stores, every other
+    read sees the input arena.  Raises when a chain's bytes exceed its
+    region.  Returns the written arena."""
+    nchain, cap, chain_rows = _check_ablate(counts, ops, arena, variant,
+                                            out_base_row, chain_rows)
+    if not _on_card("ablate_exec", arena):
+        return ablate_exec_plain(counts, ops, arena, variant, out_base_row,
+                                 chain_rows)
+    out = arena.clone()
+    lib = _build.load()
+    with torch.cuda.device(arena.device):
+        _build.check(lib, lib.minlz_ablate_exec(
+            counts.data_ptr(), ops.data_ptr(), cap, nchain, arena.data_ptr(),
+            out.data_ptr(), arena.shape[0], out_base_row, chain_rows,
+            VARIANTS.index(variant), _build.stream_of(arena)))
+    _build.count_launch("ablate_exec")
+    return out
+
+
+class _ChainBytes:
+    """One chain's view of the arena, as bytes: reads of its own region
+    [lo, hi) come from ``out``, every other read from ``inp``; a read outside
+    the arena gives 0 and a store outside the region is dropped."""
+
+    def __init__(self, inp, out, lo, hi):
+        self.inp, self.out, self.lo, self.hi = inp, out, lo, hi
+        self.n = inp.numel()
+
+    def read(self, s: int, n: int):
+        if n <= 0:
+            return self.out[:0]
+        if self.lo <= s and s + n <= self.hi:
+            return self.out[s:s + n].clone()
+        if 0 <= s and s + n <= self.n and (s + n <= self.lo or s >= self.hi):
+            return self.inp[s:s + n]
+        idx = torch.arange(s, s + n, device=self.inp.device)
+        return self.read_at(idx)
+
+    def read_at(self, idx):
+        safe = idx.clamp(0, self.n - 1)
+        own = (idx >= self.lo) & (idx < self.hi)
+        val = torch.where(own, self.out[safe], self.inp[safe])
+        return torch.where((idx >= 0) & (idx < self.n), val, 0)
+
+    def write(self, d: int, val):
+        a, b = max(d, self.lo), min(d + val.numel(), self.hi)
+        if a < b:
+            self.out[a:b] = val[a - d:b - d]
+
+    def move(self, dst: int, src: int, n: int):
+        self.write(dst, self.read(src, n))
+
+    def move_row(self, dst: int, src: int):
+        """512 bytes from src over the row at dst; a source byte before the
+        arena is the one 512 bytes on (the TPU window's wrap in row 0)."""
+        if src >= 0:
+            val = self.read(src, ROW_B)
+        else:
+            idx = torch.arange(src, src + ROW_B, device=self.inp.device)
+            val = self.read_at(torch.where(idx < 0, idx + ROW_B, idx))
+        self.write(dst, val)
+
+
+def ablate_exec_plain(counts, ops, arena, variant: str = "full",
+                      out_base_row: int = 8, chain_rows: int | None = None):
+    """Plain torch version of ``ablate_exec`` (any device): a Python loop
+    over each chain's records and moves, on byte views of the arena."""
+    nchain, _, chain_rows = _check_ablate(counts, ops, arena, variant,
+                                          out_base_row, chain_rows)
+    n_rows = arena.shape[0]
+    out = arena.clone()
+    inp_b = arena.view(torch.uint8).reshape(-1)
+    out_b = out.view(torch.uint8).reshape(-1)
+    recs = ops.cpu().tolist()
+    for ch, count in enumerate(counts.cpu().tolist()):
+        lo = (out_base_row + ch * chain_rows) * ROW_B
+        hi = lo + chain_rows * ROW_B
+        _walk_chain(_ChainBytes(inp_b, out_b, lo, hi),
+                    recs[ch][:max(count, 0)], variant, n_rows)
+    return out
+
+
+def _window_row(byte_start: int, n_rows: int) -> int:
+    """First byte of the aligned row the TPU body's window loads."""
+    return min(max(byte_start >> 9, 0), n_rows - 2) * ROW_B
+
+
+def _walk_chain(c: _ChainBytes, recs, variant: str, n_rows: int):
+    cur = c.lo
+    last_row = c.hi // ROW_B - 1
+    if variant == "full":
+        for a, b, cw in recs:
+            llen, clen, eff = a & 0x3FFF, (a >> 14) & 0x3FFF, max(b, 1)
+            c.move(cur, cw, llen)
+            d = cur + llen
+            if clen:
+                period = c.read(d - eff, min(eff, clen))
+                c.write(d, period.repeat(-(-clen // period.numel()))[:clen])
+            cur = d + clen
+        return
+    if variant == "minimal":
+        for a, b, _ in recs:
+            src_row = min(max(b >> 9, 0), n_rows - 1)
+            c.move_row(min(cur >> 9, last_row) * ROW_B, src_row * ROW_B)
+            cur += (a & 0x3FFF) + ((a >> 14) & 0x3FFF)
+        return
+    # The TPU body's state machine (csrc/ablate.cu has the same loop).
+    op, lr, cr, eff, ls = 0, 0, 0, 1, 0
+    while True:
+        if lr == 0 and cr == 0:
+            if op >= len(recs):
+                break
+            a, b, ls = recs[op]
+            lr, cr, eff = a & 0x3FFF, (a >> 14) & 0x3FFF, max(b, 1)
+            op += 1
+        if variant == "onewin":
+            is_lit = lr > 0
+            q = cur & (ROW_B - 1)
+            ta = min(lr if is_lit else min(cr, eff), ROW_B - q)
+            c.move(cur, ls if is_lit else cur - eff, ta)
+            cur += ta
+            if is_lit:
+                ls += ta
+                lr -= ta
+            else:
+                cr -= ta
+                if ta == eff and cr > 0:
+                    eff *= 2
+            continue
+        q = cur & (ROW_B - 1)
+        ta = min(lr, ROW_B - q)
+        if variant == "norealign":
+            c.move(cur, _window_row(ls - q, n_rows) + q, ta)
+        else:
+            c.move_row(min(cur >> 9, last_row) * ROW_B, ls - q)
+        cur += ta
+        ls += ta
+        lr -= ta
+        q2 = cur & (ROW_B - 1)
+        tb = min(cr, eff, ROW_B - q2) if lr == 0 else 0
+        if variant == "norealign":
+            c.move(cur, _window_row(cur - eff - q2, n_rows) + q2, tb)
+        else:
+            c.move_row(min(cur >> 9, last_row) * ROW_B, cur - eff - q2)
+        cur += tb
+        cr -= tb
+        if tb == eff and cr > 0:
+            eff *= 2
+
+
+# --------------------------------------------------------------------------
+# Inputs, as the JAX scripts build them
+# --------------------------------------------------------------------------
+
+def _fill(shape, seed: int):
+    """Seeded int32 of the full range."""
+    info = np.iinfo(np.int32)
+    return np.random.default_rng(seed).integers(
+        info.min, info.max, shape, dtype=np.int32, endpoint=True)
+
+
+def scalar_inputs(n_ops: int = 8192, n_chains: int = 1, rows: int = 4096,
+                  fill: bool = False):
+    """(rows_arr [n_chains * n_ops * 2] int32, buf [rows, 128] int32) of
+    ``kernel_probe.bench_scalar``: every chain draws its rows from its own
+    share of the buffer.  ``fill``: a seeded non-zero buf in place of the
+    script's zeros."""
+    rng = np.random.default_rng(0)
+    rr = rows // n_chains
+    rows_arr = np.zeros(n_chains * n_ops * 2, np.int32)
+    for c in range(n_chains):
+        rows_arr[c * n_ops * 2:(c + 1) * n_ops * 2] = rng.integers(
+            c * rr, (c + 1) * rr, n_ops * 2, dtype=np.int32)
+    buf = _fill((rows, ROW_WORDS), 10) if fill else np.zeros(
+        (rows, ROW_WORDS), np.int32)
+    return rows_arr, buf
+
+
+def gather_inputs(n_iters: int = 512, tbl_vregs: int = 1,
+                  wrap: bool = False):
+    """(tbl [8 * tbl_vregs, 128] int32, idx [8 * n_iters, 128] int32) of
+    ``kernel_probe.bench_gather``.  ``wrap``: full-range table values, so
+    that the int32 sum wraps."""
+    rng = np.random.default_rng(1)
+    n = tbl_vregs * GATHER_ELEMS
+    tbl = rng.integers(0, 1 << 20, (tbl_vregs * 8, ROW_WORDS), dtype=np.int32)
+    idx = rng.integers(0, n, (n_iters * 8, ROW_WORDS), dtype=np.int32)
+    if wrap:
+        tbl = _fill(tbl.shape, 11)
+    return tbl, idx
+
+
+def taa_inputs(n_iters: int = 2048, wrap: bool = False):
+    """(a [8, 128] int32, idx [8 * n_iters, 128] int32) of
+    ``kernel_probe.bench_taa``.  ``wrap`` as for ``gather_inputs``."""
+    rng = np.random.default_rng(2)
+    a = rng.integers(0, 100, (8, ROW_WORDS), dtype=np.int32)
+    idx = rng.integers(0, ROW_WORDS, (n_iters * 8, ROW_WORDS), dtype=np.int32)
+    if wrap:
+        a = _fill(a.shape, 12)
+    return a, idx
+
+
+def chain_body_inputs(n_ops: int = 4096, n_chains: int = 16,
+                      rows: int = 4096, fill: bool = False):
+    """(meta [n_chains * n_ops * 3] int32, buf [rows, 128] int32) of
+    ``exec_probe.bench_chain_body``.  ``fill`` as for ``scalar_inputs``."""
+    rng = np.random.default_rng(0)
+    rr = rows // n_chains
+    if rr < 3:
+        raise ValueError("every chain needs three rows of its own or more")
+    meta = np.zeros(n_chains * n_ops * 3, np.int32)
+    for c in range(n_chains):
+        base = c * n_ops * 3
+        meta[base:base + n_ops * 3:3] = rng.integers(
+            c * rr, (c + 1) * rr - 2, n_ops, dtype=np.int32)
+        meta[base + 1:base + n_ops * 3:3] = rng.integers(
+            c * rr, (c + 1) * rr, n_ops, dtype=np.int32)
+        meta[base + 2:base + n_ops * 3:3] = rng.integers(
+            0, ROW_B, n_ops, dtype=np.int32)
+    buf = _fill((rows, ROW_WORDS), 13) if fill else np.zeros(
+        (rows, ROW_WORDS), np.int32)
+    return meta, buf
+
+
+def ablate_inputs(nchain: int = 8, ops_per_chain: int = 4096,
+                  chain_rows: int = 128, out_base_row: int = 8,
+                  fill: bool = False):
+    """(counts [nchain] int32, ops [nchain, ops_per_chain, 3] int32, arena
+    [out_base_row + nchain * chain_rows + 2, 128] int32) with the records of
+    ``ablate_exec.run``: llen 0-4, clen 4-10, offset 8-1999, literals
+    anywhere in the literal rows.  ``fill``: a seeded non-zero arena in
+    place of the script's zeros."""
+    rng = np.random.default_rng(0)
+    ops = np.zeros((nchain, ops_per_chain, 3), np.int32)
+    for c in range(nchain):
+        ll = rng.integers(0, 5, ops_per_chain)
+        cl = rng.integers(4, 11, ops_per_chain)
+        ops[c, :, 0] = ll | (cl << 14)
+        ops[c, :, 1] = rng.integers(8, 2000, ops_per_chain)
+        ops[c, :, 2] = rng.integers(0, out_base_row * ROW_B, ops_per_chain)
+    counts = np.full(nchain, ops_per_chain, np.int32)
+    shape = (out_base_row + nchain * chain_rows + 2, ROW_WORDS)
+    arena = _fill(shape, 14) if fill else np.zeros(shape, np.int32)
+    return counts, ops, arena

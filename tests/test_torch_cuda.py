@@ -199,3 +199,79 @@ def test_greedy_kernel_matches_plain():
         for k, p in zip(kern, plain):
             assert torch.equal(k.cpu(), p)
         assert int(kern[0].sum()) > 0
+
+
+# ---- the probe kernels ----------------------------------------------------
+
+def _cuda(*arrays):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    return tuple(torch.from_numpy(a).cuda() for a in arrays)
+
+
+def _same(kernel_out, plain_out):
+    torch.cuda.synchronize()
+    assert torch.equal(kernel_out.cpu(), plain_out.cpu())
+
+
+@pytest.mark.parametrize("space,rows", [("shared", 256), ("global", 1024)])
+def test_probe_scalar_kernel_matches_plain(space, rows):
+    from minlz_tpu_torch.ops import probe
+
+    for n_chains in (1, 5, 32):
+        steps, buf = _cuda(*probe.scalar_inputs(300, n_chains, rows,
+                                                fill=True))
+        _same(probe.probe_scalar(steps, buf, n_chains, space),
+              probe.probe_scalar_plain(steps, buf, n_chains))
+
+
+@pytest.mark.parametrize("space,rows", [("shared", 256), ("global", 1024)])
+def test_probe_chain_body_kernel_matches_plain(space, rows):
+    from minlz_tpu_torch.ops import probe
+
+    for n_chains in (1, 5, 32):
+        meta, buf = _cuda(*probe.chain_body_inputs(70, n_chains, rows,
+                                                   fill=True))
+        for mode in ("minimal", "realign"):
+            _same(probe.probe_chain_body(meta, buf, n_chains, mode, space),
+                  probe.probe_chain_body_plain(meta, buf, n_chains, mode))
+
+
+def test_probe_gather_kernel_matches_plain():
+    from minlz_tpu_torch.ops import probe
+
+    for vregs in (1, 4, 9):
+        tbl, idx = _cuda(*probe.gather_inputs(37, vregs, wrap=True))
+        idx[3, 5], idx[9, 0] = -4, 1 << 30        # clamped, no fault
+        _same(probe.probe_gather(tbl, idx),
+              probe.probe_gather_plain(tbl, idx))
+
+
+def test_probe_taa_kernel_matches_plain():
+    from minlz_tpu_torch.ops import probe
+
+    a, idx = _cuda(*probe.taa_inputs(37, wrap=True))
+    idx[2, 7], idx[8, 127] = -1, 500
+    _same(probe.probe_taa(a, idx), probe.probe_taa_plain(a, idx))
+
+
+@pytest.mark.parametrize("variant", ["full", "onewin", "norealign", "nomask",
+                                     "minimal"])
+def test_ablate_kernel_matches_plain(variant):
+    from minlz_tpu_torch.ops import probe
+
+    for nchain, n, chain_rows in ((1, 200, 8), (7, 700, 24), (32, 90, 4)):
+        counts, ops, arena = probe.ablate_inputs(nchain, n, chain_rows,
+                                                 fill=True)
+        g = np.random.default_rng(nchain)
+        pick = g.random((nchain, n)) < 0.1       # overlapping, longer copies
+        ops[..., 0] = np.where(
+            pick, g.integers(0, 40, (nchain, n))
+            | (g.integers(10, 70, (nchain, n)) << 14), ops[..., 0])
+        ops[..., 1] = np.where(pick, g.integers(1, 9, (nchain, n)),
+                               ops[..., 1])
+        counts[-1] = n // 2
+        args = _cuda(counts, ops, arena)
+        _same(probe.ablate_exec(*args, variant, chain_rows=chain_rows),
+              probe.ablate_exec_plain(*args, variant,
+                                      chain_rows=chain_rows))

@@ -27,14 +27,26 @@ for name in names:
 import chip_smoke
 foreign = sorted(
     m for m in sys.modules
-    if m.split(".")[0] in ("jax", "jaxlib", "bench", "minlz_tpu"))
+    if m.split(".")[0] in ("jax", "jaxlib", "bench", "minlz_tpu",
+                           "kernel_probe", "exec_probe", "ablate_exec",
+                           "profile_decode", "probe_v2", "rec_stats",
+                           "enc_probe", "emit_probe"))
 assert not foreign, foreign
 for wanted in ("minlz_tpu_torch.stream.writer", "minlz_tpu_torch.ops.emit",
                "minlz_tpu_torch.ops.greedy", "minlz_tpu_torch.native.codec",
                "minlz_tpu_torch.oracle.encode", "minlz_tpu_torch.corpus",
                "minlz_tpu_torch.entry", "minlz_tpu_torch.testing",
                "minlz_tpu_torch.ops.exec_block",
-               "minlz_tpu_torch.ops.decode_kernel"):
+               "minlz_tpu_torch.ops.decode_kernel",
+               "minlz_tpu_torch.ops.probe", "minlz_tpu_torch.bench",
+               "minlz_tpu_torch.scripts.kernel_probe",
+               "minlz_tpu_torch.scripts.exec_probe",
+               "minlz_tpu_torch.scripts.ablate_exec",
+               "minlz_tpu_torch.scripts.profile_decode",
+               "minlz_tpu_torch.scripts.probe_v2",
+               "minlz_tpu_torch.scripts.rec_stats",
+               "minlz_tpu_torch.scripts.enc_probe",
+               "minlz_tpu_torch.scripts.emit_probe"):
     assert wanted in names, wanted
 print("clean", len(names))
 """
