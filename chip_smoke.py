@@ -17,7 +17,13 @@ their plain versions at their scripts' default sizes and then driven through
 the port's measurement scripts (kernel_probe, exec_probe body, ablate_exec),
 whose lines are printed as "time probe ..."; minlz_tpu_torch.bench.main runs
 at 8 MiB and profile_decode prints each decode kernel's time alone beside its
-wrapper's.  Then it times each phase.  It imports nothing of jax or of the
+wrapper's.  The two positioned executors (exec_range, exec_block) are also
+held against their plain versions on records made for their parallel
+resolution (deep chains, 4 KiB literal and RLE records, 2-4 byte records,
+copies across every tile boundary, odd spans, hostile fields) and timed at
+four record densities with the rounds their deepest sub-tile takes; the
+whole-block executor's tile phase and fix-up are timed apart, with the share
+of residual bytes.  Then it times each phase.  It imports nothing of jax or of the
 JAX package.  Prints a JSON line of kernel results, then, as its last
 line, {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 
@@ -378,6 +384,125 @@ def compare_probes(dev, card):
     return err, k_ms, plain_ms, bounds
 
 
+def on_card(batch, dev):
+    return tuple(torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray)
+                 else a for a in batch)
+
+
+def block_phase_times(args):
+    """The whole-block executor's bare launch on execute_blocks' arguments:
+    (ms of all three kernels, ms of the index and tile kernels, ms of the
+    fix-up kernel, residual bytes after the tile phase)."""
+    from minlz_tpu_torch.ops import exec_block as eb
+    from minlz_tpu_torch.ops import exec_chain as ec
+
+    x_args = ec.range_args("execute_blocks", args[0], 5, *args[1:5], args[5])
+    out = torch.empty(args[5], dtype=torch.uint8, device=args[0].device)
+    scratch = eb.blocks_scratch(x_args, out)
+    both = cuda_ms(lambda: eb.launch_blocks(x_args, out, scratch))
+    tiles = cuda_ms(lambda: eb.launch_blocks(x_args, out, scratch, eb.TILES))
+    residual = int((scratch[:args[5]] >= 0).sum())
+    fix = cuda_ms(lambda: eb.launch_blocks(x_args, out, scratch, eb.FIXUP))
+    return both, tiles, fix, residual
+
+
+def log_block_phases(label, args, card):
+    """A "time" line of the whole-block executor's phases on ``args``, with
+    the tiled model's counts; the kernel's residual count must equal the
+    model's and the model's bytes the kernel's."""
+    from minlz_tpu_torch.ops import exec_block as eb
+    from minlz_tpu_torch.ops import resolve_model as rm
+
+    both, tiles, fix, residual = block_phase_times(args)
+    model, info = rm.execute_blocks_tiled(*args)
+    require_equal(f"exec_block vs the tiled model, {label}",
+                  eb.execute_blocks(*args), model)
+    if residual != info["residual"]:
+        raise AssertionError(f"{label}: the tile phase left {residual} "
+                             f"residual bytes, the model {info['residual']}")
+    log(f"time exec_block phases, {label}: {args[0].shape[1]} records, "
+        f"{both:.4f} ms = index + tile phase {tiles:.4f} + fix-up "
+        f"{fix:.4f}; {residual} of {args[5]} bytes residual "
+        f"({residual / max(args[5], 1):.2%}), longest walk {info['hops']} "
+        f"hops, {info['rounds']} rounds in the deepest sub-tile  [{card}]")
+    return both
+
+
+def log_range_rounds(label, args, card):
+    """A "time" line of K3's bare launch on execute_ranges' arguments
+    (without max_span: 128 KiB), with the tiled model's rounds."""
+    from minlz_tpu_torch.ops import exec_chain as ec
+    from minlz_tpu_torch.ops import resolve_model as rm
+    from minlz_tpu_torch.ops.device_codec import RANGE
+
+    x_args = ec.range_args("execute_ranges", args[0], 5, *args[1:5], args[5])
+    out = torch.empty(args[5], dtype=torch.uint8, device=args[0].device)
+    ms = cuda_ms(lambda: ec.launch_execute(ec.EXEC, x_args, RANGE, out))
+    model, info = rm.execute_ranges_tiled(*args, RANGE)
+    require_equal(f"exec_range vs the tiled model, {label}", out, model)
+    log(f"time K3 exec_range alone, {label}: {args[0].shape[1]} records, "
+        f"{ms:.4f} ms, {info['rounds']} rounds in the deepest sub-tile "
+        f"({info['round_sum']} over the 4 steps)  [{card}]")
+
+
+def compare_synthetic(dev, card, err):
+    """exec_range and exec_block against their plain versions on records
+    made for the parallel resolution, then their times at three synthetic
+    record densities and on the deep chains."""
+    from minlz_tpu_torch.ops import exec_block as eb
+    from minlz_tpu_torch.ops import exec_chain as ec
+    from minlz_tpu_torch.ops import resolve_model as rm
+    from minlz_tpu_torch.ops.device_codec import RANGE
+    from minlz_tpu_torch.testing import (HOSTILE_RECORDS, HOSTILE_SPAN,
+                                         RECORD_KINDS, record_batch)
+
+    range_spans = [RANGE, 0, 37, rm.SUB + 13, RANGE - 1, 100_000]
+    block_spans = [MB + 1000, 0, 37, 3 * rm.TILE - 5, 200_000]
+    for kind in RECORD_KINDS:
+        args = on_card(record_batch(kind, range_spans, seed=3), dev)
+        got = ec.execute_ranges(*args, RANGE)
+        torch.cuda.synchronize()
+        err["exec_range"] = max(err["exec_range"], require_equal(
+            f"exec_range, {kind} records", got,
+            ec.execute_ranges_plain(*args, RANGE)))
+        args = on_card(record_batch(kind, block_spans, seed=4), dev)
+        got = eb.execute_blocks(*args)
+        torch.cuda.synchronize()
+        err["exec_block"] = max(err["exec_block"], require_equal(
+            f"exec_block, {kind} records", got,
+            eb.execute_blocks_plain(*args)))
+    n = len(HOSTILE_RECORDS)
+    crec = torch.tensor(HOSTILE_RECORDS * 2, dtype=torch.int32).T.contiguous()
+    g = np.random.default_rng(9)
+    for comp in (g.integers(0, 256, 2048, dtype=np.uint8),
+                 np.zeros(0, np.uint8)):
+        args = (crec.to(dev), torch.tensor([0, n, 2 * n], device=dev),
+                torch.tensor([0, HOSTILE_SPAN], device=dev),
+                torch.tensor([HOSTILE_SPAN, HOSTILE_SPAN - 3],
+                             dtype=torch.int32, device=dev),
+                torch.from_numpy(comp).to(dev), 2 * HOSTILE_SPAN - 3)
+        want = ec.execute_ranges_plain(*args, HOSTILE_SPAN)
+        got_r = ec.execute_ranges(*args, HOSTILE_SPAN)
+        got_b = eb.execute_blocks(*args)
+        torch.cuda.synchronize()
+        err["exec_range"] = max(err["exec_range"], require_equal(
+            "exec_range, hostile records", got_r, want))
+        err["exec_block"] = max(err["exec_block"], require_equal(
+            "exec_block, hostile records", got_b, want))
+    log(f"exec_range and exec_block == plain versions (tolerance 0) on "
+        f"synthetic records {RECORD_KINDS} at range spans {range_spans} and "
+        f"block spans {block_spans}, and on hostile fields with and without "
+        f"comp, no CUDA fault")
+
+    for kind in ("literals", "dense", "deep_1", "deep_3", "far"):
+        if kind != "far":
+            args = on_card(record_batch(kind, [RANGE] * 64, seed=5), dev)
+            log_range_rounds(f"{kind} records, 64 x 128 KiB", args, card)
+        args = on_card(record_batch(kind, [MB] * BATCH_BLOCKS, seed=5), dev)
+        log_block_phases(f"{kind} records, {BATCH_BLOCKS} x 1 MiB", args,
+                         card)
+
+
 def main():
     # ---- 1. card and versions -------------------------------------------
     if not torch.cuda.is_available():
@@ -626,6 +751,12 @@ def main():
         f"versions, {3 * tried - decoded} rejected as corrupt, "
         f"{whole_runs} launches of the whole-block executor, no CUDA fault")
 
+    # ---- 3d. the parallel resolution on records made for it -----------------
+    compare_synthetic(dev, card, err)
+    log_range_rounds(f"the corpus, {n_ranges} x 128 KiB", args_exec[:6], card)
+    log_block_phases(f"the corpus without the clamp, {BATCH_BLOCKS} x 1 MiB",
+                     args_block, card)
+
     # ---- 4. encode parity: the match finder on the card and the CPU ------
     arr = np.frombuffer(corpus[8 * MB:9 * MB], np.uint8).reshape(1, MB)
     gd, gl = ek.find_matches_dyn(torch.from_numpy(arr.copy()).to(dev), [MB],
@@ -754,7 +885,17 @@ def main():
         f"Writer -> Reader on the range road, and decode_block_whole "
         f"({len(big_block)} bytes without the clamp) in {big_ms:.1f} ms "
         f"host bytes in/out  [{card}]")
-    del got_big, big_block, big_segs
+    plan_big = ec.plan_batch([big_segs], big_seg, 0)
+    big_stages = run_stages(plan_big.tensors(dev), plan_big, False)
+    tb = plan_big.tensors(dev)
+    big_both = log_block_phases(
+        "one 8 MiB block without the clamp",
+        (big_stages[2], big_stages[4], tb["range_out"], tb["range_span"],
+         tb["comp"], plan_big.total_out), card)
+    log(f"time exec_block per MB: one 8 MiB block {big_both / 8:.4f} ms/MB, "
+        f"eight 1 MiB blocks {k_ms['exec_block'] / BATCH_BLOCKS:.4f} ms/MB "
+        f"(wrapper)  [{card}]")
+    del got_big, big_block, big_segs, big_stages, tb
 
     # ---- 7. the greedy serializer: one block, no native codec ------------
     _build.reset_launches()
@@ -801,10 +942,10 @@ def main():
     per_range, per_block = n_recs / n_ranges, n_recs_w / BATCH_BLOCKS
     log(f"time probe executors, for the distance to the bare chains: K3 "
         f"exec_range {k_ms['exec_range'] * 1e6 / per_range:.1f} ns/record "
-        f"of a range ({per_range:.0f} records a range, staged in shared "
+        f"of a range ({per_range:.0f} records a range, resolved in shared "
         f"memory), exec_block {k_ms['exec_block'] * 1e6 / per_block:.1f} "
-        f"ns/record of a block ({per_block:.0f} records a block, in device "
-        f"memory), exec_sched {k_ms['exec_sched'] * 1e6 / per_range:.1f} "
+        f"ns/record of a block ({per_block:.0f} records a block, resolved "
+        f"tile by tile), exec_sched {k_ms['exec_sched'] * 1e6 / per_range:.1f} "
         f"ns/record of a range  [{card}]")
 
     # ---- 7d. the port's bench and the kernel-alone times --------------------

@@ -56,9 +56,10 @@ _SIGNATURES = {
     "minlz_exec_sched": [_P, ctypes.c_longlong, _P, _P, _P, ctypes.c_int,
                          ctypes.c_int, _P, ctypes.c_longlong, _P, _P],
     # recs, n_recs, block_first, block_out, block_span, n_blocks, comp,
-    # n_comp, out, stream
+    # n_comp, out, total_out, scratch, phases, stream
     "minlz_exec_blocks": [_P, ctypes.c_longlong, _P, _P, _P, ctypes.c_int,
-                          _P, ctypes.c_longlong, _P, _P],
+                          _P, ctypes.c_longlong, _P, ctypes.c_longlong, _P,
+                          ctypes.c_int, _P],
     # off, len, lanes, seg, take, tok_off, tok_len, is_rep, stream
     "minlz_greedy": [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P],
     # rows, n_ops, n_chains, n_rows, buf, shared, stream

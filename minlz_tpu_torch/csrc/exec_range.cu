@@ -1,13 +1,12 @@
-// Range executors, one thread block per 128 KiB output range: one kernel
-// template, two instances.
+// Range executors, one thread block per 128 KiB output range: two kernels.
 //
-// exec_range_kernel<false> (K3) replaces the TPU kernel
+// exec_range_kernel (K3) replaces the TPU kernel
 // minlz_tpu/ops/exec_chain.py::_make_fast_kernel (reached through
 // execute_fast), the v2 decoder that places each record's literals and then
 // copies clen bytes from cur - csrc, range by range; its records carry their
 // output position.
 //
-// exec_range_kernel<true> replaces minlz_tpu/ops/exec_chain.py::
+// exec_sched_kernel replaces minlz_tpu/ops/exec_chain.py::
 // _make_sched_kernel (reached through execute_scheduled, in its packed and
 // its planar arena alike: two layouts of one function).  Its records carry
 // no position ([4, n]: llen, clen, csrc, lit): a cursor starts at 0 in every
@@ -15,38 +14,77 @@
 // cursor stops at the span.  The TPU's deal of ranges to chains is work
 // distribution, which the grid does here.
 //
-// What bounds it here: records are short (a few bytes of literals and a copy
-// of a few to a few dozen bytes), and a copy may read what the records just
-// before it wrote, so the walk over a range's records is serial; the time
-// goes to per-record latency (shared-memory round trips and barriers), not
-// to bandwidth.  One block per range and 128 KiB of shared memory per block
-// means one block per SM, and a batch of 8 MiB has only 64 ranges for the
-// card's 132 SMs.
+// What bounds K3 here: records are short (6.7 output bytes on average), and
+// a copy may read what the records just before it wrote.  Walked one after
+// the other, a range's 20 K records cost a shared-memory round trip and a
+// barrier each, and the kernel's time is the longest range's walk.  Taken
+// byte by byte instead, the dependence is a pointer chain per byte, and a
+// chain is resolved in log2(depth) rounds of gathers in shared memory: what
+// bounds the kernel then is the number of rounds of its deepest sub-tile
+// times one gather pass over 32 KiB, not the record count.
 //
-// What the design does about it: the whole range is staged in dynamic shared
-// memory, so every copy source is a shared-memory read and the range leaves
-// for device memory once, in 16-byte stores.  Within a record the block's
-// threads copy the bytes in parallel: literal bytes from comp, then copy
-// bytes by out[d + i] = out[d - csrc + i % csrc] (one formula for plain and
-// overlapping copies, and every source lies before d).  A barrier is taken
-// only when a copy reads bytes written since the last barrier.
+// What the design does about it (resolve.cuh has the arithmetic and the
+// proof): one thread block of 1024 threads per range; the range's final
+// bytes are staged in dynamic shared memory and leave in 16-byte stores; the
+// range is resolved in sub-tiles of 32 KiB, in output order, each expanded
+// from the records into one 16-bit state word per byte (final value, or
+// in-sub-tile source) and then resolved by doubling rounds with a block-wide
+// vote for early exit.  No thread walks records in order: one pass finds
+// each sub-tile's window of records, and a sub-tile reads its window with
+// coalesced loads, a record per lane.
+//
+// exec_sched_kernel is still the serial walk: its cursor is a prefix sum
+// over the records, so it waits for a block scan in front of this core.
+// Within a record its 256 threads copy the bytes in parallel, literal bytes
+// from comp, then copy bytes by out[d + i] = out[d - csrc + i % csrc], and a
+// barrier is taken only when a copy reads bytes written since the last one.
 //
 // Hostile input never faults: every shared index is clamped into the range
 // span and every comp index into the comp buffer.  A copy source before the
-// range start reads 0.  The plain version (ops/exec_chain.py) applies the
-// same clamps and rules.
+// range start reads 0.  The plain versions (ops/exec_chain.py) apply the
+// same clamps and rules; K3 agrees with its plain version whenever a range's
+// records with any bytes move forward without overlapping, which compaction
+// guarantees (records of no bytes may stand anywhere).
 
 #include <algorithm>
 #include <climits>
 
 #include "common.cuh"
+#include "resolve.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kSchedThreads = 256;
 
-template <bool kAppend>
-__global__ void exec_range_kernel(const int* __restrict__ recs,
+// K3: one range per thread block, resolved in shared memory.
+__global__ void __launch_bounds__(resolve::kThreads, 1)
+exec_range_kernel(const int* __restrict__ recs, long long n_recs,
+                  const long long* __restrict__ range_first,
+                  const long long* __restrict__ range_out,
+                  const int* __restrict__ range_span, int max_span,
+                  const unsigned char* __restrict__ comp, long long n_comp,
+                  unsigned char* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int r = blockIdx.x;
+  resolve::Tile t;
+  t.recs = recs;
+  t.n_recs = n_recs;
+  t.first = min(max(range_first[r], 0LL), n_recs);
+  t.last = min(max(range_first[r + 1], t.first), n_recs);
+  t.span = min(max(range_span[r], 0), max_span);
+  t.base = 0;
+  t.len = t.span;
+  t.comp = comp;
+  t.n_comp = n_comp;
+  t.res = nullptr;
+  uint16_t* st = reinterpret_cast<uint16_t*>(smem);
+  unsigned char* stage = smem + resolve::state_bytes(max_span);
+  resolve::resolve_tile<false>(t, stage, st);
+  resolve::store_tile(stage, out + range_out[r], t.len);
+}
+
+// The append-only executor: a serial walk over the range's records.
+__global__ void exec_sched_kernel(const int* __restrict__ recs,
                                   long long n_recs,
                                   const long long* __restrict__ range_first,
                                   const long long* __restrict__ range_out,
@@ -56,6 +94,7 @@ __global__ void exec_range_kernel(const int* __restrict__ recs,
                                   long long n_comp,
                                   unsigned char* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char stage[];
+  constexpr int kThreads = kSchedThreads;
   const int r = blockIdx.x;
   const int tid = threadIdx.x;
   const int S = min(max(range_span[r], 0), max_span);
@@ -66,9 +105,7 @@ __global__ void exec_range_kernel(const int* __restrict__ recs,
   for (int i = (S / 16) * 16 + tid; i < S; i += kThreads) stage[i] = 0;
   __syncthreads();
 
-  // Positioned records have one more row, in front.
-  const int* pos_f = recs;
-  const int* llen_f = recs + (kAppend ? 0 : 1) * n_recs;
+  const int* llen_f = recs;
   const int* clen_f = llen_f + n_recs;
   const int* csrc_f = llen_f + 2 * n_recs;
   const int* lit_f = llen_f + 3 * n_recs;
@@ -76,9 +113,9 @@ __global__ void exec_range_kernel(const int* __restrict__ recs,
   const long long last = min(max(range_first[r + 1], first), n_recs);
 
   int dirty_lo = INT_MAX;  // lowest byte written since the last barrier
-  int cursor = 0;          // kAppend: where the next record lands
+  int cursor = 0;          // where the next record lands
   for (long long k = first; k < last; ++k) {
-    const int p = kAppend ? cursor : min(max(pos_f[k], 0), S);
+    const int p = cursor;
     const int llen = min(max(llen_f[k], 0), S - p);
     const int clen = min(max(clen_f[k], 0), S - p - llen);
     cursor = p + llen + clen;
@@ -117,32 +154,12 @@ __global__ void exec_range_kernel(const int* __restrict__ recs,
   }
 }
 
-template <bool kAppend>
-int launch(const void* recs, long long n_recs, const void* range_first,
-           const void* range_out, const void* range_span, int n_ranges,
-           int max_span, const void* comp, long long n_comp, void* out,
-           void* stream) {
-  if (n_ranges > 0) {
-    const int smem = (std::max(max_span, 0) + 15) / 16 * 16;
-    cudaError_t err = cudaFuncSetAttribute(
-        exec_range_kernel<kAppend>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    exec_range_kernel<kAppend>
-        <<<n_ranges, kThreads, smem, (cudaStream_t)stream>>>(
-            (const int*)recs, n_recs, (const long long*)range_first,
-            (const long long*)range_out, (const int*)range_span, max_span,
-            (const unsigned char*)comp, n_comp, (unsigned char*)out);
-  }
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // recs: [5, n_recs] int32 (pos, llen, clen, csrc, lit) from minlz_compact;
 // range_first: [n_ranges + 1] int64 record offsets; range_out: [n_ranges]
 // int64 output offsets; range_span: [n_ranges] int32, each <= max_span;
-// comp: [n_comp] uint8; out: the decoded bytes.
+// comp: [n_comp] uint8; out: the decoded bytes.  One __global__ launch.
 MINLZ_EXPORT int minlz_exec_ranges(const void* recs, long long n_recs,
                                    const void* range_first,
                                    const void* range_out,
@@ -150,8 +167,18 @@ MINLZ_EXPORT int minlz_exec_ranges(const void* recs, long long n_recs,
                                    int max_span, const void* comp,
                                    long long n_comp, void* out,
                                    void* stream) {
-  return launch<false>(recs, n_recs, range_first, range_out, range_span,
-                       n_ranges, max_span, comp, n_comp, out, stream);
+  if (n_ranges > 0) {
+    const int smem = resolve::shared_bytes(std::max(max_span, 0));
+    cudaError_t err = cudaFuncSetAttribute(
+        exec_range_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    exec_range_kernel<<<n_ranges, resolve::kThreads, smem,
+                        (cudaStream_t)stream>>>(
+        (const int*)recs, n_recs, (const long long*)range_first,
+        (const long long*)range_out, (const int*)range_span, max_span,
+        (const unsigned char*)comp, n_comp, (unsigned char*)out);
+  }
+  return (int)cudaGetLastError();
 }
 
 // As minlz_exec_ranges, on recs [4, n_recs] int32 (llen, clen, csrc, lit)
@@ -163,6 +190,16 @@ MINLZ_EXPORT int minlz_exec_sched(const void* recs, long long n_recs,
                                   int max_span, const void* comp,
                                   long long n_comp, void* out,
                                   void* stream) {
-  return launch<true>(recs, n_recs, range_first, range_out, range_span,
-                      n_ranges, max_span, comp, n_comp, out, stream);
+  if (n_ranges > 0) {
+    const int smem = (std::max(max_span, 0) + 15) / 16 * 16;
+    cudaError_t err = cudaFuncSetAttribute(
+        exec_sched_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    exec_sched_kernel<<<n_ranges, kSchedThreads, smem,
+                        (cudaStream_t)stream>>>(
+        (const int*)recs, n_recs, (const long long*)range_first,
+        (const long long*)range_out, (const int*)range_span, max_span,
+        (const unsigned char*)comp, n_comp, (unsigned char*)out);
+  }
+  return (int)cudaGetLastError();
 }

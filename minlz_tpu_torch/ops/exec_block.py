@@ -10,8 +10,11 @@ from any earlier byte of the block, so the whole block is one range:
 2. compact (``exec_chain.compact_records``, ``csrc/compact.cu``) with
    whole-block lane spans from ``plan_batch(..., rng=0)``: one dense record
    list per block, in output order, with block-local positions;
-3. execute (``execute_blocks``, ``csrc/exec_block.cu``): one thread block
-   per MinLZ block walks the list in device memory.
+3. execute (``execute_blocks``, ``csrc/exec_block.cu``): every 128 KiB
+   tile of every block is resolved at once in shared memory, as a range is
+   on the other road; a copy byte that reads before its tile keeps its
+   source index (a residual) and a fix-up pass follows the residuals
+   through the finished tiles.  Three kernel launches a call.
 
 A batch of blocks of any sizes decodes in one dispatch.  The TPU road's
 limits (512 lanes, 4 KiB segments, 1-2 MiB) do not carry over: the limit is
@@ -33,6 +36,8 @@ from .exec_chain import (range_args, compact_records, execute_ranges_plain,
 from .parse import parse_segments
 
 KERNEL = "exec_block"
+TILE = 128 << 10    # csrc/resolve.cuh: kTile
+TILES, FIXUP = 1, 2  # the phases of a launch
 
 
 def execute_blocks(crec, block_first, block_out, block_span, comp,
@@ -40,30 +45,49 @@ def execute_blocks(crec, block_first, block_out, block_span, comp,
     """crec [5, n] int32 (pos, llen, clen, csrc, lit) with block-local
     positions; block_first [B + 1] int64 record offsets; block_out [B] int64
     output offsets; block_span [B] int32; comp [m] uint8.  Returns the
-    decoded bytes, [total_out] uint8."""
+    decoded bytes, [total_out] uint8.  The blocks are expected to tile the
+    output, and each block's records that hold any bytes to move forward
+    without overlapping, as compaction leaves them (a record of no bytes may
+    stand anywhere): overlapping records have no last writer here or in the
+    plain version, and their bytes are unspecified."""
     if crec.device.type == "cpu":
         return execute_blocks_plain(crec, block_first, block_out,
                                     block_span, comp, total_out)
     args = range_args("execute_blocks", crec, 5, block_first, block_out,
                       block_span, comp, total_out)
     out = torch.empty(total_out, dtype=torch.uint8, device=crec.device)
-    launch_blocks(args, out)
+    launch_blocks(args, out, blocks_scratch(args, out))
     return out
 
 
-def launch_blocks(args, out):
+def blocks_scratch(args, out):
+    """The scratch of one ``launch_blocks`` call, uninitialised: int32, one
+    word per output byte (after the tile phase -1 for a final byte, else the
+    block-local source index of a residual), then two words per block and
+    128 KiB tile of the output (the tile's window of records)."""
+    tiles = -(-out.numel() // TILE)
+    return torch.empty(out.numel() + 2 * args[3].numel() * tiles,
+                       dtype=torch.int32, device=out.device)
+
+
+def launch_blocks(args, out, scratch, phases: int = TILES | FIXUP):
     """The bare launch of the whole-block executor.  args: what
     ``range_args`` returned (records, block_first, block_out, block_span,
-    comp); ``out`` [total_out] uint8 is written in place.  No check, no
-    allocation, no read back; measurements time this."""
+    comp); ``out`` [total_out] uint8 is written in place; ``scratch``: what
+    ``blocks_scratch`` returned.  ``phases``: ``TILES`` runs the index and
+    tile kernels, ``FIXUP`` the fix-up kernel on the scratch a tile phase
+    left; both by default, on one stream.  No check, no allocation, no read
+    back; measurements time this."""
     lib = _build.load()
     _build.check(lib, lib.minlz_exec_blocks(
         args[0].data_ptr(), ctypes.c_longlong(args[0].shape[1]),
         args[1].data_ptr(), args[2].data_ptr(), args[3].data_ptr(),
         args[3].numel(), args[4].data_ptr(),
         ctypes.c_longlong(args[4].numel()), out.data_ptr(),
+        ctypes.c_longlong(out.numel()), scratch.data_ptr(), phases,
         _build.stream_of(args[0])))
-    _build.count_launch(KERNEL)
+    if phases & TILES:
+        _build.count_launch(KERNEL)
 
 
 def execute_blocks_plain(crec, block_first, block_out, block_span, comp,

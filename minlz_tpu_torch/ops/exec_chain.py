@@ -11,7 +11,8 @@ decodes in one dispatch of three kernels:
 2. compact: the lane lists -> one dense record list per range, in output
    order, with global literal indices and the hostile-input clamps;
 3. execute: one range per thread block, staged in shared memory -> the
-   decoded bytes.
+   decoded bytes.  ``execute_ranges`` (K3) resolves a range's bytes in
+   parallel (``csrc/resolve.cuh``); ``execute_scheduled`` walks its records.
 
 Steps 2 and 3 come in two forms, chosen by the ``executor`` argument of
 ``decode_blocks_chained``:
@@ -340,7 +341,11 @@ def execute_ranges(crec, range_first, range_out, range_span, comp,
     int64; range_out [R] int64; range_span [R] int32 (each <= max_span);
     comp [m] uint8.  Returns the decoded bytes, [total_out] uint8.  The
     ranges are expected to tile the output, as a plan's do: the kernels
-    leave bytes outside every range unwritten (the plain versions give 0)."""
+    leave bytes outside every range unwritten (the plain versions give 0).
+    Each range's records that hold any bytes are expected to move forward
+    without overlapping, as compaction leaves them (a record of no bytes
+    may stand anywhere): overlapping records have no last writer, in the
+    kernel or in the plain version, and their bytes are unspecified."""
     if crec.device.type == "cpu":
         return execute_ranges_plain(crec, range_first, range_out,
                                     range_span, comp, total_out, max_span)
@@ -367,15 +372,15 @@ def launch_execute(kernel: str, args, max_span: int, out):
     _build.count_launch(kernel)
 
 
-def execute_ranges_plain(crec, range_first, range_out, range_span, comp,
-                         total_out: int, max_span: int = RANGE):
-    """Plain torch version of ``execute_ranges`` by pointer jumping: every
-    output byte is either terminal (a literal byte from comp, or 0) or
-    points to an earlier byte of its range; about log2(max_span) rounds of
-    gathers resolve every pointer.  Records are taken, as the kernel takes
-    them, in order, with the kernel's clamps; it agrees with the kernel's
-    sequential walk whenever each range's records move forward without
-    overlapping, which compaction guarantees."""
+def expand_bytes(crec, range_first, range_out, range_span, comp,
+                 total_out: int, max_span: int = RANGE):
+    """Every output byte as the executors see it before any copy is
+    resolved.  Returns (val [total_out] uint8, ptr [total_out] int64, term
+    [total_out] bool): a terminal byte has its value in ``val`` (a literal
+    byte from comp, or 0 for a byte no record writes and for a copy from
+    before the range start); any other byte takes the value of output byte
+    ``ptr``, an earlier byte of its range.  Records are taken in order,
+    with the kernel's clamps."""
     dev = crec.device
     n = crec.shape[1]
     R = range_span.numel()
@@ -419,7 +424,21 @@ def execute_ranges_plain(crec, range_first, range_out, range_span, comp,
     inside = s >= 0
     ptr[qc[inside]] = base[rb][cp][inside] + s[inside]
     term[qc[inside]] = False
+    return val, ptr, term
 
+
+def execute_ranges_plain(crec, range_first, range_out, range_span, comp,
+                         total_out: int, max_span: int = RANGE):
+    """Plain torch version of ``execute_ranges`` by pointer jumping: every
+    output byte is either terminal (a literal byte from comp, or 0) or
+    points to an earlier byte of its range (``expand_bytes``); about
+    log2(max_span) rounds of gathers over the whole output resolve every
+    pointer.  It agrees with the kernel whenever each range's records that
+    hold any bytes move forward without overlapping, which compaction
+    guarantees (a record of no bytes may stand anywhere); on overlapping
+    records neither has a last writer and the bytes are unspecified."""
+    val, ptr, term = expand_bytes(crec, range_first, range_out, range_span,
+                                  comp, total_out, max_span)
     for _ in range(64):
         if bool(term.all()):
             return val

@@ -2,7 +2,7 @@
 parse + compact, and the full decode, for the range road (positioned
 records, one thread block per 128 KiB range; ``--executor scheduled`` takes
 the append-only form) and for the whole-block road (one thread block per
-block), in ms/MB.
+128 KiB tile of every block, then a fix-up pass), in ms/MB.
 
     python -m minlz_tpu_torch.scripts.probe_v2 [--device cuda|cpu]
         [--blocks 4] [--block-kb 1024] [--executor fast|scheduled]

@@ -80,13 +80,14 @@ def stage_times(road="whole", n_blocks=1, device="cuda", iters=3,
         x_args = ec.range_args("execute", crec, 5, first, t["range_out"],
                                t["range_span"], t["comp"], plan.total_out)
         crec_out, bytes_out = torch.empty_like(crec), torch.empty_like(out)
+        scratch = None if rng else eb.blocks_scratch(x_args, bytes_out)
         launches = {
             "parse": lambda: ps.launch_parse(*lanes, recs, counts),
             "compact": lambda: ec.launch_compact(ec.COMPACT, c_args,
                                                  crec_out),
             "execute": (lambda: ec.launch_execute(
                 ec.EXEC, x_args, plan.max_span, bytes_out)) if rng else (
-                lambda: eb.launch_blocks(x_args, bytes_out)),
+                lambda: eb.launch_blocks(x_args, bytes_out, scratch)),
         }
         for name, fn in launches.items():
             alone[name], _ = timed_device(fn, (), iters, device=device)
@@ -108,7 +109,7 @@ def stage_times(road="whole", n_blocks=1, device="cuda", iters=3,
     print(f"full: wrapper {ms(t_full)} (execute ~{ms(t_full - t_pc)}), "
           f"execute kernel alone {ms(alone['execute'])}"
           + (f" = {alone['execute'] * 1e9 / per_walk:.1f} ns/record of a "
-             f"walk ({per_walk:.0f} records a range or block on average)"
+             f"range or block ({per_walk:.0f} records each on average)"
              if on_card else "") + f"  [{where}]", flush=True)
 
     if profile_dir:

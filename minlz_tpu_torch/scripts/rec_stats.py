@@ -4,10 +4,9 @@ Keeps the JAX script's classification, whose 512-byte row is a notion of the
 TPU arena: a record is "fast" when its literal part fits one 512-byte row,
 its copy part fits one row, and the copy does not overlap its own output
 (csrc >= clen); everything else took the TPU's multi-pass state machine.
-Adds the two figures that matter on a card whose executors walk a range's
-records in order: records per 128 KiB range, and the share of copies whose
-source overlaps their destination (a pointer-jumping resolution needs more
-rounds for those).
+Adds two figures that matter on the card: records per 128 KiB range (what
+the append-only executor walks and the parallel executors expand), and the
+share of copies whose source overlaps their destination.
 
     python -m minlz_tpu_torch.scripts.rec_stats [--device cuda|cpu]
         [--mb 4] [--block-kb 1024]

@@ -12,7 +12,10 @@ from minlz_tpu_torch.ops import exec_block as teb
 from minlz_tpu_torch.ops import exec_chain as tec
 from minlz_tpu_torch.ops.device_codec import RANGE, split_body
 from minlz_tpu_torch.ops.encode_kernel import encode_blocks_device
+from minlz_tpu_torch.ops import resolve_model as trm
 from minlz_tpu_torch.ops.parse import parse_segments, parse_segments_plain
+from minlz_tpu_torch.testing import (HOSTILE_RECORDS, HOSTILE_SPAN,
+                                     RECORD_KINDS, record_batch)
 
 pytestmark = pytest.mark.cuda
 
@@ -174,6 +177,77 @@ def test_hostile_records_kernels_match_plain():
     drec_p, off_p = tec.compact_records_dense_plain(*cargs)
     assert torch.equal(drec_k.cpu(), drec_p) and torch.equal(off_k.cpu(),
                                                              off_p)
+
+
+# ---- the parallel resolution on records made for it ------------------------
+
+def _batch_on_card(batch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    return tuple(torch.from_numpy(a).cuda() if isinstance(a, np.ndarray)
+                 else a for a in batch)
+
+
+@pytest.mark.parametrize("kind", RECORD_KINDS)
+def test_range_kernel_on_synthetic_records(kind):
+    """Deep chains, 4 KiB literal and RLE records, 2-4 byte records; spans
+    of 0, below a sub-tile, no multiple of 16 or of the sub-tile."""
+    spans = [RANGE, 0, 37, (32 << 10) + 13, RANGE - 1, 100_000]
+    args = _batch_on_card(record_batch(kind, spans, seed=3))
+    out = tec.execute_ranges(*args, RANGE)
+    torch.cuda.synchronize()
+    assert torch.equal(out, tec.execute_ranges_plain(*args, RANGE))
+
+
+@pytest.mark.parametrize("kind", RECORD_KINDS)
+def test_block_kernel_on_synthetic_records(kind):
+    """The same kinds at block spans that are no multiple of the tile;
+    ``far`` copies across every tile boundary.  The kernel's tile phase and
+    the tiled torch model leave the same number of residual bytes."""
+    spans = [(1 << 20) + 1000, 0, 37, 3 * trm.TILE - 5, 200_000]
+    args = _batch_on_card(record_batch(kind, spans, seed=4))
+    out = teb.execute_blocks(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, teb.execute_blocks_plain(*args))
+    model, info = trm.execute_blocks_tiled(*args)
+    assert torch.equal(out, model)
+    x_args = tec.range_args("execute_blocks", args[0], 5, *args[1:5],
+                            args[5])
+    out2 = torch.empty_like(out)
+    scratch = teb.blocks_scratch(x_args, out2)
+    teb.launch_blocks(x_args, out2, scratch, teb.TILES)
+    torch.cuda.synchronize()
+    assert int((scratch[: args[5]] >= 0).sum()) == info["residual"]
+    if kind == "far":
+        assert info["residual"] > 0 and info["hops"] >= 7
+    teb.launch_blocks(x_args, out2, scratch, teb.FIXUP)
+    torch.cuda.synchronize()
+    assert torch.equal(out2, out)
+
+
+def test_positioned_kernels_on_hostile_records():
+    """Fields outside every bound, inside the executors' contract: both
+    kernels clamp as the plain version does, with no fault; also with an
+    empty comp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    g = np.random.default_rng(9)
+    crec = torch.tensor(HOSTILE_RECORDS * 2, dtype=torch.int32).T.contiguous()
+    n = len(HOSTILE_RECORDS)
+    for comp in (g.integers(0, 256, 2048, dtype=np.uint8),
+                 np.zeros(0, np.uint8)):
+        args = (crec.cuda(), torch.tensor([0, n, 2 * n]).cuda(),
+                torch.tensor([0, HOSTILE_SPAN]).cuda(),
+                torch.tensor([HOSTILE_SPAN, HOSTILE_SPAN - 3],
+                             dtype=torch.int32).cuda(),
+                torch.from_numpy(comp).cuda(), 2 * HOSTILE_SPAN - 3)
+        want = tec.execute_ranges_plain(*args, HOSTILE_SPAN)
+        got = tec.execute_ranges(*args, HOSTILE_SPAN)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        got = teb.execute_blocks(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 def test_greedy_kernel_matches_plain():
