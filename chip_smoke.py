@@ -17,13 +17,18 @@ their plain versions at their scripts' default sizes and then driven through
 the port's measurement scripts (kernel_probe, exec_probe body, ablate_exec),
 whose lines are printed as "time probe ..."; minlz_tpu_torch.bench.main runs
 at 8 MiB and profile_decode prints each decode kernel's time alone beside its
-wrapper's.  The two positioned executors (exec_range, exec_block) are also
-held against their plain versions on records made for their parallel
-resolution (deep chains, 4 KiB literal and RLE records, 2-4 byte records,
-copies across every tile boundary, odd spans, hostile fields) and timed at
-four record densities with the rounds their deepest sub-tile takes; the
-whole-block executor's tile phase and fix-up are timed apart, with the share
-of residual bytes.  Then it times each phase.  It imports nothing of jax or of the
+wrapper's.  The three executors on the resolution core (exec_range,
+exec_sched, exec_block) are also held against their plain versions on
+records made for their parallel resolution (deep chains, 4 KiB literal and
+RLE records, 2-4 byte records, copies across every tile boundary, odd spans,
+hostile fields, ranges that go backwards) and timed at four record densities
+with the rounds their deepest sub-tile takes; the whole-block executor's
+tile phase and fix-up are timed apart, with the share of residual bytes.
+The parse kernel (K1) is held against its plain version on random bytes,
+literal runs, RLE tokens, lanes of copy tokens across its windows and 16 KiB
+segments, against its token model (ops/parse_model.py) on whole batches, and
+timed ("time parse" lines: alone, and through both wrappers) on the corpus
+and three made-up batches.  Then it times each phase.  It imports nothing of jax or of the
 JAX package.  Prints a JSON line of kernel results, then, as its last
 line, {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 
@@ -57,6 +62,8 @@ FOREIGN = ("jax", "jaxlib", "bench", "minlz_tpu")
 BENCH_MB = 8            # minlz_tpu_torch.bench.main's corpus
 # The probe scripts' default sweeps (scripts/kernel_probe.py, exec_probe.py
 # and ablate_exec.py of the port): (rows of the buffer, where it is walked).
+PARSE_LANES = 2048       # lanes of the "time parse" inputs: the corpus batch's
+PLAIN_LANES = 64         # lanes of them held against the plain version
 PROBE_SPACES = (("shared", 256), ("global", 4096))
 SCALAR_STEPS, SCALAR_CHAINS = 8192, (1, 2, 4, 8, 16)
 BODY_STEPS, BODY_CHAINS = 4096, (1, 8, 16, 32)
@@ -217,7 +224,7 @@ def run_stages(t, plan, plain: bool):
     from minlz_tpu_torch.ops import exec_chain as ec
     from minlz_tpu_torch.ops import parse as ps
 
-    parse = ps.parse_segments_plain if plain else ps.parse_segments
+    parse = ps.parse_segments_plain if plain else ps.parse_planned
     compact = ec.compact_records_plain if plain else ec.compact_records
     recs, counts = parse(t["comp"], t["lane_start"], t["lane_len"])
     crec, lane_out = compact(recs, counts, t["lane_start"], t["lane_len"],
@@ -440,9 +447,100 @@ def log_range_rounds(label, args, card):
     ms = cuda_ms(lambda: ec.launch_execute(ec.EXEC, x_args, RANGE, out))
     model, info = rm.execute_ranges_tiled(*args, RANGE)
     require_equal(f"exec_range vs the tiled model, {label}", out, model)
+    # The same records without their positions through the append-only
+    # executor: its cursor scan, then the same K3.
+    s_args = ec.range_args("execute_scheduled", args[0][1:].contiguous(), 4,
+                           *args[1:5], args[5])
+    out_s = torch.empty_like(out)
+    scratch = ec.sched_scratch(s_args)
+    ms_s = cuda_ms(lambda: ec.launch_execute(ec.EXEC_SCHED, s_args, RANGE,
+                                             out_s, scratch))
+    require_equal(f"exec_sched vs exec_range, {label}", out_s, out)
     log(f"time K3 exec_range alone, {label}: {args[0].shape[1]} records, "
         f"{ms:.4f} ms, {info['rounds']} rounds in the deepest sub-tile "
-        f"({info['round_sum']} over the 4 steps)  [{card}]")
+        f"({info['round_sum']} over the 4 steps); exec_sched alone (cursor "
+        f"scan + K3) {ms_s:.4f} ms  [{card}]")
+    return ms, ms_s
+
+
+def lanes_on(segs, dev):
+    """Segment byte strings -> (comp, lane_start, lane_len) on ``dev``."""
+    lens = np.array([len(x) for x in segs], np.int32)
+    start = (np.cumsum(lens) - lens).astype(np.int32)
+    comp = np.frombuffer(b"".join(segs) or b"\x00", np.uint8).copy()
+    return tuple(torch.from_numpy(a).to(dev) for a in (comp, start, lens))
+
+
+def parse_inputs():
+    """The three made-up inputs of the "time parse" lines, PARSE_LANES
+    lanes of one 4 KiB segment's worth each, from a seed: one literal run
+    of incompressible bytes a lane; short tokens (one literal, then 2-byte
+    Copy1 tokens of offset 1, RLE); random bytes."""
+    from minlz_tpu_torch.oracle import encode as oenc
+
+    g = np.random.default_rng(0x5EED)
+    lit = []
+    for _ in range(PARSE_LANES):
+        dst = bytearray()
+        oenc.emit_literals(dst, g.integers(0, 256, SEG, np.uint8).tobytes())
+        lit.append(bytes(dst))
+    rle = [b"\x00a" + b"\x01\x00" * (SEG // 2 - 1)] * PARSE_LANES
+    rnd = [g.integers(0, 256, SEG, np.uint8).tobytes()
+           for _ in range(PARSE_LANES)]
+    return {"literals only (incompressible)": lit, "short tokens (RLE)": rle,
+            "random bytes": rnd}
+
+
+def copy_token_lanes(n_lanes, n_bytes, seed):
+    """Random bytes with no literal-run tag: copy tokens back to back, so
+    every lane's chain runs its whole length across several windows."""
+    g = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_lanes):
+        b = g.integers(0, 256, n_bytes, dtype=np.uint8)
+        b |= (b & 3 == 0) * g.integers(1, 4, n_bytes, dtype=np.uint8)
+        out.append(b.tobytes())
+    return out
+
+
+def parse_vs_plain(label, segs, dev):
+    """K1 on ``segs`` against its plain version (run on the CPU: a row loop
+    is cheaper there for few lanes), every slot.  Returns 0."""
+    from minlz_tpu_torch.ops import parse as ps
+
+    recs, counts = ps.parse_segments(*lanes_on(segs, dev))
+    torch.cuda.synchronize()
+    recs_p, counts_p = ps.parse_segments_plain(*lanes_on(segs, "cpu"))
+    return max(require_equal(f"parse counts, {label}", counts, counts_p),
+               require_equal(f"parse records, {label}", recs, recs_p))
+
+
+def time_parse(label, args, card):
+    """A "time parse" line: K1 alone (the bare launch), through
+    parse_planned (no read back, as decode_planned calls it) and through
+    parse_segments (three checks read back), with the token model's counts;
+    the kernel must equal the model in every slot."""
+    from minlz_tpu_torch.ops import parse as ps
+    from minlz_tpu_torch.ops import parse_model as pm
+
+    recs, counts = ps.parse_planned(*args)
+    recs_m, counts_m, info = pm.parse_segments_model(*args)
+    torch.cuda.synchronize()
+    require_equal(f"parse vs the token model, {label}", recs, recs_m)
+    require_equal(f"parse counts vs the token model, {label}", counts,
+                  counts_m)
+    del recs_m, counts_m
+    r2, c2 = torch.empty_like(recs), torch.empty_like(counts)
+    alone = cuda_ms(lambda: ps.launch_parse(*args, r2, c2))
+    require_equal(f"parse, bare launch, {label}", r2, recs)
+    planned = cuda_ms(lambda: ps.parse_planned(*args))
+    wrapper = cuda_ms(lambda: ps.parse_segments(*args))
+    log(f"time parse {label}: {args[2].numel()} lanes, {args[0].numel()} "
+        f"bytes, {info['tokens']} tokens = chain hops ({info['max_tokens']} "
+        f"in the fullest window), {info['windows']} windows, "
+        f"{int(counts.sum())} records; alone {alone:.4f} ms, parse_planned "
+        f"{planned:.4f} ms, parse_segments {wrapper:.4f} ms  [{card}]")
+    return alone, planned, wrapper
 
 
 def compare_synthetic(dev, card, err):
@@ -465,6 +563,12 @@ def compare_synthetic(dev, card, err):
         err["exec_range"] = max(err["exec_range"], require_equal(
             f"exec_range, {kind} records", got,
             ec.execute_ranges_plain(*args, RANGE)))
+        drec = args[0][1:].contiguous()
+        got = ec.execute_scheduled(drec, *args[1:], RANGE)
+        torch.cuda.synchronize()
+        err["exec_sched"] = max(err["exec_sched"], require_equal(
+            f"exec_sched, {kind} records", got,
+            ec.execute_scheduled_plain(drec, *args[1:], RANGE)))
         args = on_card(record_batch(kind, block_spans, seed=4), dev)
         got = eb.execute_blocks(*args)
         torch.cuda.synchronize()
@@ -489,10 +593,31 @@ def compare_synthetic(dev, card, err):
             "exec_range, hostile records", got_r, want))
         err["exec_block"] = max(err["exec_block"], require_equal(
             "exec_block, hostile records", got_b, want))
-    log(f"exec_range and exec_block == plain versions (tolerance 0) on "
-        f"synthetic records {RECORD_KINDS} at range spans {range_spans} and "
-        f"block spans {block_spans}, and on hostile fields with and without "
-        f"comp, no CUDA fault")
+    # The append-only executor on hostile fields and ranges that go
+    # backwards, past the records, or hold none.
+    g = np.random.default_rng(8)
+    n = 3000
+    drec = np.where(g.random((4, n)) < 0.95, g.integers(-2, 40, (4, n)),
+                    g.integers(-(1 << 31), (1 << 31) - 1, (4, n),
+                               dtype=np.int64)).astype(np.int32)
+    first = torch.tensor([0, 900, 900, 400, 2000, 1500, n, n + 7])
+    span = torch.tensor([4096, 100, 2000, 8192, 64, 3000, 17],
+                        dtype=torch.int32)
+    span64 = span.to(torch.int64)
+    s_args = (torch.from_numpy(drec), first, torch.cumsum(span64, 0) - span64,
+              span, torch.from_numpy(g.integers(0, 256, 5000, np.uint8)),
+              int(span.sum()), 8192)
+    got = ec.execute_scheduled(*(a.to(dev) if torch.is_tensor(a) else a
+                                 for a in s_args))
+    torch.cuda.synchronize()
+    err["exec_sched"] = max(err["exec_sched"], require_equal(
+        "exec_sched, hostile records, backward ranges", got,
+        ec.execute_scheduled_plain(*s_args)))
+    log(f"exec_range, exec_sched and exec_block == plain versions "
+        f"(tolerance 0) on synthetic records {RECORD_KINDS} at range spans "
+        f"{range_spans} and block spans {block_spans}, and on hostile fields "
+        f"with and without comp (exec_sched: with ranges that go backwards), "
+        f"no CUDA fault")
 
     for kind in ("literals", "dense", "deep_1", "deep_3", "far"):
         if kind != "far":
@@ -591,11 +716,26 @@ def main():
     log(f"decode kernels == plain versions (tolerance 0: integers and "
         f"bytes) on {BATCH_BLOCKS} x 1 MiB: {n_comp} compressed bytes, "
         f"{lanes} lanes, {n_recs} records, {n_ranges} ranges")
-    k_ms = {
-        "parse": cuda_ms(lambda: ps.parse_segments(*args_parse)),
+    # ---- 3a. K1 on inputs made to stress it, and its time ------------------
+    # "ms" of parse is the wrapper the decode roads call (parse_planned).
+    k_ms = {}
+    _, k_ms["parse"], _ = time_parse(f"the corpus, {BATCH_BLOCKS} x 1 MiB",
+                                     args_parse, card)
+    for label, segs in parse_inputs().items():
+        err["parse"] = max(err["parse"], parse_vs_plain(
+            f"{label}, first {PLAIN_LANES} lanes", segs[:PLAIN_LANES], dev))
+        time_parse(label, lanes_on(segs, dev), card)
+    err["parse"] = max(err["parse"], parse_vs_plain(
+        "copy tokens, 16 lanes of 6000 bytes", copy_token_lanes(16, 6000, 21),
+        dev))
+    log(f"parse == plain version (tolerance 0, every slot) on the first "
+        f"{PLAIN_LANES} lanes of each made-up input and on 16 lanes of "
+        f"copy tokens across 3 windows each; == the token model on all "
+        f"{PARSE_LANES} lanes of each")
+    k_ms.update({
         "compact": cuda_ms(lambda: ec.compact_records(*args_compact)),
         "exec_range": cuda_ms(lambda: ec.execute_ranges(*args_exec)),
-    }
+    })
     # Bytes each function must move (inputs once, outputs once) and its
     # integer operations, counted from this batch.  parse: the compressed
     # bytes and two lane arrays in, seven int32 record fields per slot and
@@ -875,6 +1015,8 @@ def main():
                                                   dev)
     _, _, pos = parse_header(big_block)
     big_segs = split_body(big_block[pos:], [h[0] for h in big_hints])
+    err["parse"] = max(err["parse"], parse_vs_plain(
+        "8 MiB block, 16 KiB segments, first 8 lanes", big_segs[:8], dev))
     _build.reset_launches()
     (got_big, big_ms) = once_ms(lambda: eb.decode_block_whole(
         big_segs, BIG_BLOCK, big_seg, dev))
@@ -981,6 +1123,8 @@ def main():
     dev_w_ms = cuda_ms(lambda: run_stages(tw, plan_w, False), repeats=3)
     e2e_w_ms = host_ms(lambda: codec.decode_batch(items_w))
     dev_s_ms = cuda_ms(lambda: ec.decode_planned(plan, dev, "scheduled"))
+    dev_s2_ms = cuda_ms(lambda: ec.decode_planned(plan, dev, "scheduled",
+                                                  tensors=t))
 
     # The all-device encode, stage by stage, as encode_block_emit runs it.
     def emit_stages():
@@ -1037,6 +1181,8 @@ def main():
              e2e_ms / BATCH_BLOCKS),
             ("decode, append-only road (plan copy + 3 kernels), 8 x 1 MiB",
              dev_s_ms / BATCH_BLOCKS),
+            ("decode, append-only road, 3 kernels device-resident, "
+             "8 x 1 MiB", dev_s2_ms / BATCH_BLOCKS),
             ("decode 3 kernels, whole-block road, device-resident, "
              "8 x 1 MiB", dev_w_ms / BATCH_BLOCKS),
             ("decode_batch host bytes in/out, whole-block road, 8 x 1 MiB",
@@ -1044,7 +1190,8 @@ def main():
         log(f"time {label}: {val:.4f} ms/MB  [{card}]")
     log(f"peak device memory, encode_block_emit on 16 x 1 MiB: "
         f"{emit_peak / (1 << 20):.0f} MiB  [{card}]")
-    shapes = {"greedy": "16 x 1 MiB batch",
+    shapes = {"parse": "8 x 1 MiB batch, through parse_planned",
+              "greedy": "16 x 1 MiB batch",
               "exec_block": "8 x 1 MiB batch without the clamp",
               "compact_whole": "8 x 1 MiB batch without the clamp",
               "probe_scalar": f"{SCALAR_STEPS} steps x "

@@ -39,8 +39,10 @@ _lib = None
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    # comp, lane_start, lane_len, lanes, recs, n_slots, counts, stream
-    "minlz_parse": [_P, _P, _P, ctypes.c_int, _P, ctypes.c_longlong, _P, _P],
+    # comp, n_comp, lane_start, lane_len, lanes, recs, n_slots, counts,
+    # stream
+    "minlz_parse": [_P, ctypes.c_longlong, _P, _P, ctypes.c_int, _P,
+                    ctypes.c_longlong, _P, _P],
     # recs, n_slots, lane_start, lane_len, lane_cnt, lane_out, lane_lo,
     # lane_hi, lanes, out, n_out, stream
     "minlz_compact": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P,
@@ -53,8 +55,9 @@ _SIGNATURES = {
     # max_span, comp, n_comp, out, stream
     "minlz_exec_ranges": [_P, ctypes.c_longlong, _P, _P, _P, ctypes.c_int,
                           ctypes.c_int, _P, ctypes.c_longlong, _P, _P],
+    # ... then pos (the int32 position scratch), stream
     "minlz_exec_sched": [_P, ctypes.c_longlong, _P, _P, _P, ctypes.c_int,
-                         ctypes.c_int, _P, ctypes.c_longlong, _P, _P],
+                         ctypes.c_int, _P, ctypes.c_longlong, _P, _P, _P],
     # recs, n_recs, block_first, block_out, block_span, n_blocks, comp,
     # n_comp, out, total_out, scratch, phases, stream
     "minlz_exec_blocks": [_P, ctypes.c_longlong, _P, _P, _P, ctypes.c_int,

@@ -140,8 +140,7 @@ tile_kernel(const int* __restrict__ recs, long long n_recs,
   const long long last = min(max(block_first[b + 1], first), n_recs);
   const long long w = (long long)b * tiles_x + blockIdx.x;
   resolve::Tile t;
-  t.recs = recs;
-  t.n_recs = n_recs;
+  t.rec = resolve::fields_of(recs, n_recs);
   t.first = min(first + win_lo[w], last);
   t.last = min(max(first - win_nhi[w], t.first), last);
   t.span = S;

@@ -1,4 +1,4 @@
-// Range executors, one thread block per 128 KiB output range: two kernels.
+// Range executors, one thread block per 128 KiB output range.
 //
 // exec_range_kernel (K3) replaces the TPU kernel
 // minlz_tpu/ops/exec_chain.py::_make_fast_kernel (reached through
@@ -6,13 +6,20 @@
 // copies clen bytes from cur - csrc, range by range; its records carry their
 // output position.
 //
-// exec_sched_kernel replaces minlz_tpu/ops/exec_chain.py::
-// _make_sched_kernel (reached through execute_scheduled, in its packed and
-// its planar arena alike: two layouts of one function).  Its records carry
-// no position ([4, n]: llen, clen, csrc, lit): a cursor starts at 0 in every
-// range, each record lands at the cursor, clipped to the range span, and the
-// cursor stops at the span.  The TPU's deal of ranges to chains is work
-// distribution, which the grid does here.
+// minlz_exec_sched replaces minlz_tpu/ops/exec_chain.py::_make_sched_kernel
+// (reached through execute_scheduled, in its packed and its planar arena
+// alike: two layouts of one function).  Its records carry no position ([4,
+// n]: llen, clen, csrc, lit): a cursor starts at 0 in every range, each
+// record lands at the cursor, clipped to the range span, and the cursor
+// stops at the span.  The cursor is a prefix sum, so it is two launches:
+// sched_pos_kernel, a block scan per range over max(llen, 0) + max(clen, 0)
+// in int64 that writes each record's position, min(scan, span), to a
+// scratch row; then exec_range_kernel, K3 itself, reading the position from
+// that row and the other four fields from the records.  A record belongs to
+// one range at most: ranges that go backwards are cut (sched_pos_kernel).  The positioned
+// records it sees move forward without overlapping by construction.  The
+// TPU's deal of ranges to chains is work distribution, which the grid does
+// here.
 //
 // What bounds K3 here: records are short (6.7 output bytes on average), and
 // a copy may read what the records just before it wrote.  Walked one after
@@ -31,13 +38,8 @@
 // in-sub-tile source) and then resolved by doubling rounds with a block-wide
 // vote for early exit.  No thread walks records in order: one pass finds
 // each sub-tile's window of records, and a sub-tile reads its window with
-// coalesced loads, a record per lane.
-//
-// exec_sched_kernel is still the serial walk: its cursor is a prefix sum
-// over the records, so it waits for a block scan in front of this core.
-// Within a record its 256 threads copy the bytes in parallel, literal bytes
-// from comp, then copy bytes by out[d + i] = out[d - csrc + i % csrc], and a
-// barrier is taken only when a copy reads bytes written since the last one.
+// coalesced loads, a record per lane.  The scan in front of the append-only
+// road reads 8 bytes a record and writes 4: a small share of K3's time.
 //
 // Hostile input never faults: every shared index is clamped into the range
 // span and every comp index into the comp buffer.  A copy source before the
@@ -47,18 +49,18 @@
 // guarantees (records of no bytes may stand anywhere).
 
 #include <algorithm>
-#include <climits>
 
 #include "common.cuh"
 #include "resolve.cuh"
 
 namespace {
 
-constexpr int kSchedThreads = 256;
+constexpr int kScanThreads = 1024;
+constexpr int kScanItems = 8;    // consecutive records a thread sums
 
 // K3: one range per thread block, resolved in shared memory.
 __global__ void __launch_bounds__(resolve::kThreads, 1)
-exec_range_kernel(const int* __restrict__ recs, long long n_recs,
+exec_range_kernel(resolve::Fields rec, long long n_recs,
                   const long long* __restrict__ range_first,
                   const long long* __restrict__ range_out,
                   const int* __restrict__ range_span, int max_span,
@@ -67,8 +69,7 @@ exec_range_kernel(const int* __restrict__ recs, long long n_recs,
   extern __shared__ __align__(16) unsigned char smem[];
   const int r = blockIdx.x;
   resolve::Tile t;
-  t.recs = recs;
-  t.n_recs = n_recs;
+  t.rec = rec;
   t.first = min(max(range_first[r], 0LL), n_recs);
   t.last = min(max(range_first[r + 1], t.first), n_recs);
   t.span = min(max(range_span[r], 0), max_span);
@@ -83,75 +84,101 @@ exec_range_kernel(const int* __restrict__ recs, long long n_recs,
   resolve::store_tile(stage, out + range_out[r], t.len);
 }
 
-// The append-only executor: a serial walk over the range's records.
-__global__ void exec_sched_kernel(const int* __restrict__ recs,
-                                  long long n_recs,
-                                  const long long* __restrict__ range_first,
-                                  const long long* __restrict__ range_out,
-                                  const int* __restrict__ range_span,
-                                  int max_span,
-                                  const unsigned char* __restrict__ comp,
-                                  long long n_comp,
-                                  unsigned char* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char stage[];
-  constexpr int kThreads = kSchedThreads;
+// The append-only cursor, one range per thread block.  The ranges are
+// taken as [M[r], M[r + 1]) with M the running maximum of range_first
+// clamped into [0, n_recs], so a range that goes backwards takes back no
+// record of an earlier one (for a plan's non-decreasing range_first, M is
+// range_first); block r writes M[r + 1] to bounds[r + 1], block 0 also
+// bounds[0].  pos[k] = min(sum of the range's clamped lengths before record
+// k, span).  Records are loaded coalesced into shared memory, kScanItems *
+// kScanThreads at a time; each thread sums kScanItems consecutive ones, a
+// block scan in int64 gives its start, and the positions leave coalesced.
+// Each block reads range_first[0 .. r + 1] for M: about r / 1024 loads a
+// thread, nothing at a decode batch's few hundred ranges.
+__global__ void __launch_bounds__(kScanThreads)
+sched_pos_kernel(const int* __restrict__ llen_f,
+                 const int* __restrict__ clen_f, long long n_recs,
+                 const long long* __restrict__ range_first,
+                 const int* __restrict__ range_span, int max_span,
+                 long long* __restrict__ bounds, int* __restrict__ pos) {
+  constexpr int kChunk = kScanThreads * kScanItems;
+  __shared__ unsigned step[kChunk];
+  __shared__ long long warp_sum[kScanThreads / 32];
+  __shared__ long long carry;
+  __shared__ unsigned long long m[2];
   const int r = blockIdx.x;
   const int tid = threadIdx.x;
-  const int S = min(max(range_span[r], 0), max_span);
-
-  // Zero the range (unwritten bytes decode as 0).
-  uint4* st4 = reinterpret_cast<uint4*>(stage);
-  for (int i = tid; i < S / 16; i += kThreads) st4[i] = make_uint4(0, 0, 0, 0);
-  for (int i = (S / 16) * 16 + tid; i < S; i += kThreads) stage[i] = 0;
+  const int lane = tid & 31, warp = tid >> 5;
+  if (tid < 2) m[tid] = 0;
+  if (tid == 0) carry = 0;
   __syncthreads();
-
-  const int* llen_f = recs;
-  const int* clen_f = llen_f + n_recs;
-  const int* csrc_f = llen_f + 2 * n_recs;
-  const int* lit_f = llen_f + 3 * n_recs;
-  const long long first = min(max(range_first[r], 0LL), n_recs);
-  const long long last = min(max(range_first[r + 1], first), n_recs);
-
-  int dirty_lo = INT_MAX;  // lowest byte written since the last barrier
-  int cursor = 0;          // where the next record lands
-  for (long long k = first; k < last; ++k) {
-    const int p = cursor;
-    const int llen = min(max(llen_f[k], 0), S - p);
-    const int clen = min(max(clen_f[k], 0), S - p - llen);
-    cursor = p + llen + clen;
-    const int csrc = max(csrc_f[k], 1);
-    const long long lit = lit_f[k];
-    for (int i = tid; i < llen; i += kThreads) {
-      const long long g = min(max(lit + i, 0LL), n_comp - 1);
-      stage[p + i] = n_comp > 0 ? comp[g] : 0;
-    }
-    if (llen > 0) dirty_lo = min(dirty_lo, p);
-    if (clen > 0) {
-      const int d = p + llen;
-      const long long s0 = (long long)d - csrc;
-      const long long read_hi = s0 + min(csrc, clen);
-      if (read_hi > dirty_lo) {
-        __syncthreads();
-        dirty_lo = INT_MAX;
-      }
-      const bool rle = csrc < clen;
-      for (int i = tid; i < clen; i += kThreads) {
-        const long long s = s0 + (rle ? i % csrc : i);
-        stage[d + i] = s >= 0 ? stage[s] : 0;
-      }
-      dirty_lo = min(dirty_lo, d);
-    }
+  for (int j = tid; j <= r + 1; j += kScanThreads) {
+    const long long f = min(max(range_first[j], 0LL), n_recs);
+    if (j <= r) atomicMax(m, (unsigned long long)f);
+    atomicMax(m + 1, (unsigned long long)f);
   }
   __syncthreads();
-
-  unsigned char* dst = out + range_out[r];
-  if ((reinterpret_cast<unsigned long long>(dst) & 15) == 0) {
-    uint4* d4 = reinterpret_cast<uint4*>(dst);
-    for (int i = tid; i < S / 16; i += kThreads) d4[i] = st4[i];
-    for (int i = (S / 16) * 16 + tid; i < S; i += kThreads) dst[i] = stage[i];
-  } else {
-    for (int i = tid; i < S; i += kThreads) dst[i] = stage[i];
+  const long long first = (long long)m[0], last = (long long)m[1];
+  if (tid == 0) {
+    bounds[r + 1] = last;
+    if (r == 0) bounds[0] = first;
   }
+  const long long S = min(max(range_span[r], 0), max_span);
+  for (long long k0 = first; k0 < last; k0 += kChunk) {
+#pragma unroll
+    for (int u = 0; u < kScanItems; ++u) {
+      const long long k = k0 + u * kScanThreads + tid;
+      // Each length is at most 2^31 - 1, so the sum fits 32 unsigned bits.
+      step[u * kScanThreads + tid] =
+          k < last ? (unsigned)max(__ldg(llen_f + k), 0) +
+                         (unsigned)max(__ldg(clen_f + k), 0)
+                   : 0u;
+    }
+    __syncthreads();
+    long long run = 0;
+#pragma unroll
+    for (int u = 0; u < kScanItems; ++u) run += step[tid * kScanItems + u];
+    long long inc = run;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long y = __shfl_up_sync(0xffffffffu, inc, o);
+      if (lane >= o) inc += y;
+    }
+    if (lane == 31) warp_sum[warp] = inc;
+    __syncthreads();
+    long long before = carry + inc - run;
+    for (int v = 0; v < warp; ++v) before += warp_sum[v];
+#pragma unroll
+    for (int u = 0; u < kScanItems; ++u) {
+      const unsigned st = step[tid * kScanItems + u];
+      step[tid * kScanItems + u] = (unsigned)min(before, S);
+      before += st;
+    }
+    __syncthreads();
+    if (tid == kScanThreads - 1) carry = before;
+#pragma unroll
+    for (int u = 0; u < kScanItems; ++u) {
+      const long long k = k0 + u * kScanThreads + tid;
+      if (k < last) pos[k] = (int)step[u * kScanThreads + tid];
+    }
+    __syncthreads();
+  }
+}
+
+int launch_ranges(resolve::Fields rec, long long n_recs,
+                  const void* range_first, const void* range_out,
+                  const void* range_span, int n_ranges, int max_span,
+                  const void* comp, long long n_comp, void* out,
+                  cudaStream_t stream) {
+  const int smem = resolve::shared_bytes(std::max(max_span, 0));
+  cudaError_t err = cudaFuncSetAttribute(
+      exec_range_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  exec_range_kernel<<<n_ranges, resolve::kThreads, smem, stream>>>(
+      rec, n_recs, (const long long*)range_first,
+      (const long long*)range_out, (const int*)range_span, max_span,
+      (const unsigned char*)comp, n_comp, (unsigned char*)out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -167,39 +194,35 @@ MINLZ_EXPORT int minlz_exec_ranges(const void* recs, long long n_recs,
                                    int max_span, const void* comp,
                                    long long n_comp, void* out,
                                    void* stream) {
-  if (n_ranges > 0) {
-    const int smem = resolve::shared_bytes(std::max(max_span, 0));
-    cudaError_t err = cudaFuncSetAttribute(
-        exec_range_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    exec_range_kernel<<<n_ranges, resolve::kThreads, smem,
-                        (cudaStream_t)stream>>>(
-        (const int*)recs, n_recs, (const long long*)range_first,
-        (const long long*)range_out, (const int*)range_span, max_span,
-        (const unsigned char*)comp, n_comp, (unsigned char*)out);
-  }
-  return (int)cudaGetLastError();
+  if (n_ranges <= 0) return (int)cudaGetLastError();
+  return launch_ranges(resolve::fields_of((const int*)recs, n_recs), n_recs,
+                       range_first, range_out, range_span, n_ranges,
+                       max_span, comp, n_comp, out, (cudaStream_t)stream);
 }
 
 // As minlz_exec_ranges, on recs [4, n_recs] int32 (llen, clen, csrc, lit)
-// from minlz_compact_dense, placed by an append-only cursor per range.
+// from minlz_compact_dense, placed by an append-only cursor per range;
+// scratch: int64 [n_ranges + 1] (the ranges as taken), then int32 [n_recs]
+// (each record's position).  Two __global__ launches: the cursor scan, then
+// K3 on the positioned records.
 MINLZ_EXPORT int minlz_exec_sched(const void* recs, long long n_recs,
                                   const void* range_first,
                                   const void* range_out,
                                   const void* range_span, int n_ranges,
                                   int max_span, const void* comp,
-                                  long long n_comp, void* out,
+                                  long long n_comp, void* out, void* scratch,
                                   void* stream) {
-  if (n_ranges > 0) {
-    const int smem = (std::max(max_span, 0) + 15) / 16 * 16;
-    cudaError_t err = cudaFuncSetAttribute(
-        exec_sched_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    exec_sched_kernel<<<n_ranges, kSchedThreads, smem,
-                        (cudaStream_t)stream>>>(
-        (const int*)recs, n_recs, (const long long*)range_first,
-        (const long long*)range_out, (const int*)range_span, max_span,
-        (const unsigned char*)comp, n_comp, (unsigned char*)out);
-  }
-  return (int)cudaGetLastError();
+  if (n_ranges <= 0) return (int)cudaGetLastError();
+  const int* f = (const int*)recs;
+  long long* bounds = (long long*)scratch;
+  int* pos = (int*)(bounds + n_ranges + 1);
+  sched_pos_kernel<<<n_ranges, kScanThreads, 0, (cudaStream_t)stream>>>(
+      f, f + n_recs, n_recs, (const long long*)range_first,
+      (const int*)range_span, max_span, bounds, pos);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const resolve::Fields rec{pos, f, f + n_recs, f + 2 * n_recs,
+                            f + 3 * n_recs};
+  return launch_ranges(rec, n_recs, bounds, range_out, range_span, n_ranges,
+                       max_span, comp, n_comp, out, (cudaStream_t)stream);
 }

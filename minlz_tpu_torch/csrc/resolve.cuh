@@ -77,9 +77,22 @@ constexpr int kQueue = kSub / kLong + 2;
 constexpr unsigned kFinal = 0x8000u;
 constexpr unsigned kFull = 0xffffffffu;
 
+// A record list's five int32 fields, each its own row.
+struct Fields {
+  const int* pos;
+  const int* llen;
+  const int* clen;
+  const int* csrc;
+  const int* lit;
+};
+
+// The rows of a [5, n] record array (pos, llen, clen, csrc, lit).
+__host__ __device__ inline Fields fields_of(const int* recs, long long n) {
+  return Fields{recs, recs + n, recs + 2 * n, recs + 3 * n, recs + 4 * n};
+}
+
 struct Tile {
-  const int* recs;     // [5, n_recs]: pos, llen, clen, csrc, lit
-  long long n_recs;
+  Fields rec;
   long long first;     // the records that may touch the tile: [first, last)
   long long last;
   int span;            // the range's or block's span: records are clamped to it
@@ -168,9 +181,9 @@ __device__ __forceinline__ void windows(const Tile& t, int* win) {
     win[2 * threadIdx.x + 1] = 0;
   }
   __syncthreads();
-  const int* pos_f = t.recs;
-  const int* llen_f = t.recs + t.n_recs;
-  const int* clen_f = t.recs + 2 * t.n_recs;
+  const int* pos_f = t.rec.pos;
+  const int* llen_f = t.rec.llen;
+  const int* clen_f = t.rec.clen;
   for (long long k0 = t.first + warp * 32; k0 < t.last;
        k0 += kThreads * kAhead) {
     int pos[kAhead], llen[kAhead], clen[kAhead];
@@ -221,11 +234,11 @@ __device__ __forceinline__ void expand(const Tile& t, int t0, int n,
   const int warp = threadIdx.x >> 5;
   const int lo = t.base + t0;
   const int hi = lo + n;
-  const int* pos_f = t.recs;
-  const int* llen_f = t.recs + t.n_recs;
-  const int* clen_f = t.recs + 2 * t.n_recs;
-  const int* csrc_f = t.recs + 3 * t.n_recs;
-  const int* lit_f = t.recs + 4 * t.n_recs;
+  const int* pos_f = t.rec.pos;
+  const int* llen_f = t.rec.llen;
+  const int* clen_f = t.rec.clen;
+  const int* csrc_f = t.rec.csrc;
+  const int* lit_f = t.rec.lit;
   if (threadIdx.x == 0) *n_queue = 0;
   __syncthreads();
   // The next chunk's fields are loaded before this chunk is expanded.

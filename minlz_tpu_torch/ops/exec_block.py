@@ -33,7 +33,7 @@ import torch
 from .. import _build
 from .exec_chain import (range_args, compact_records, execute_ranges_plain,
                          plan_batch, range_firsts, trim_blocks)
-from .parse import parse_segments
+from .parse import parse_planned
 
 KERNEL = "exec_block"
 TILE = 128 << 10    # csrc/resolve.cuh: kTile
@@ -108,7 +108,7 @@ def decode_planned_whole(plan, device="cuda", tensors: dict | None = None):
     if plan.rng:
         raise ValueError("not a whole-block plan")
     t = plan.tensors(device) if tensors is None else tensors
-    recs, counts = parse_segments(t["comp"], t["lane_start"], t["lane_len"])
+    recs, counts = parse_planned(t["comp"], t["lane_start"], t["lane_len"])
     crec, lane_out = compact_records(recs, counts, t["lane_start"],
                                      t["lane_len"], t["lane_lo"],
                                      t["lane_hi"])

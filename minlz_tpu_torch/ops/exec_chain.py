@@ -12,7 +12,8 @@ decodes in one dispatch of three kernels:
    order, with global literal indices and the hostile-input clamps;
 3. execute: one range per thread block, staged in shared memory -> the
    decoded bytes.  ``execute_ranges`` (K3) resolves a range's bytes in
-   parallel (``csrc/resolve.cuh``); ``execute_scheduled`` walks its records.
+   parallel (``csrc/resolve.cuh``); ``execute_scheduled`` first scans each
+   range's record lengths for their positions, then runs K3's core.
 
 Steps 2 and 3 come in two forms, chosen by the ``executor`` argument of
 ``decode_blocks_chained``:
@@ -53,7 +54,7 @@ import torch
 from .. import _build
 from .._device import resolve_device
 from .device_codec import RANGE
-from .parse import parse_segments
+from .parse import parse_planned
 
 _I32 = torch.int32
 _I64 = torch.int64
@@ -356,19 +357,23 @@ def execute_ranges(crec, range_first, range_out, range_span, comp,
     return out
 
 
-def launch_execute(kernel: str, args, max_span: int, out):
+def launch_execute(kernel: str, args, max_span: int, out, scratch=None):
     """The bare launch of a range executor, ``EXEC`` or ``EXEC_SCHED``.
     args: what ``range_args`` returned (records, range_first, range_out,
-    range_span, comp); ``out`` [total_out] uint8 is written in place.  No
+    range_span, comp); ``out`` [total_out] uint8 is written in place;
+    ``scratch``: for ``EXEC_SCHED``, what ``sched_scratch`` returned.  No
     check, no allocation, no read back; measurements time this."""
     lib = _build.load()
-    fn = lib.minlz_exec_ranges if kernel == EXEC else lib.minlz_exec_sched
-    _build.check(lib, fn(
-        args[0].data_ptr(), ctypes.c_longlong(args[0].shape[1]),
-        args[1].data_ptr(), args[2].data_ptr(), args[3].data_ptr(),
-        args[3].numel(), max_span, args[4].data_ptr(),
-        ctypes.c_longlong(args[4].numel()), out.data_ptr(),
-        _build.stream_of(args[0])))
+    common = (args[0].data_ptr(), ctypes.c_longlong(args[0].shape[1]),
+              args[1].data_ptr(), args[2].data_ptr(), args[3].data_ptr(),
+              args[3].numel(), max_span, args[4].data_ptr(),
+              ctypes.c_longlong(args[4].numel()), out.data_ptr())
+    if kernel == EXEC:
+        err = lib.minlz_exec_ranges(*common, _build.stream_of(args[0]))
+    else:
+        err = lib.minlz_exec_sched(*common, scratch.data_ptr(),
+                                   _build.stream_of(args[0]))
+    _build.check(lib, err)
     _build.count_launch(kernel)
 
 
@@ -460,32 +465,55 @@ def execute_scheduled(drec, range_first, range_out, range_span, comp,
     ``compact_records_dense``; the other arguments as ``execute_ranges``.
     Per range a cursor starts at 0; each record places its literals at the
     cursor and then its copy, each clipped to the range span, and the
-    cursor never passes the span.  Returns [total_out] uint8."""
+    cursor never passes the span.  A record belongs to one range at most
+    (``scheduled_bounds``).  Returns [total_out] uint8.  On the card
+    two launches: a scan of each range's lengths writes every record's
+    position, then K3 places the positioned records."""
     if drec.device.type == "cpu":
         return execute_scheduled_plain(drec, range_first, range_out,
                                        range_span, comp, total_out, max_span)
     args = range_args("execute_scheduled", drec, 4, range_first, range_out,
                       range_span, comp, total_out)
     out = torch.empty(total_out, dtype=torch.uint8, device=drec.device)
-    launch_execute(EXEC_SCHED, args, max_span, out)
+    launch_execute(EXEC_SCHED, args, max_span, out, sched_scratch(args))
     return out
 
 
-def execute_scheduled_plain(drec, range_first, range_out, range_span, comp,
-                            total_out: int, max_span: int = RANGE):
-    """Plain torch version of ``execute_scheduled``: each record's position
-    is the sum of the lengths before it in its range (an exclusive prefix
-    sum, stopped at the span, where the kernel's cursor stops too); then
-    ``execute_ranges_plain`` resolves the positioned records."""
+def sched_scratch(args):
+    """The scratch of one ``EXEC_SCHED`` launch, uninitialised: int64, the
+    ranges as taken (``scheduled_bounds``, R + 1 words), then each record's
+    position as int32 (``scheduled_positions``)."""
+    n, ranges = args[0].shape[1], args[3].numel()
+    return torch.empty(ranges + 1 + (n + 1) // 2, dtype=_I64,
+                       device=args[0].device)
+
+
+def scheduled_bounds(range_first, n: int):
+    """The ranges as the append-only executor takes them: range r is
+    records [M[r], M[r + 1]) with M the running maximum of range_first
+    clamped into [0, n], so a record belongs to one range at most; a range
+    that goes backwards is empty and takes back no record of an earlier one.
+    For a plan's non-decreasing range_first, M is range_first."""
+    if range_first.numel() == 0:
+        return range_first.to(_I64)
+    return torch.cummax(range_first.to(_I64).clamp(0, n), 0).values
+
+
+def scheduled_positions(drec, range_first, range_span,
+                        max_span: int = RANGE):
+    """What the append-only kernel's cursor scan writes: [n] int32, each
+    record's position, the sum of the clamped lengths (max(llen, 0) +
+    max(clen, 0)) before it in its range (``scheduled_bounds``), in int64,
+    stopped at the range span.  Records outside every range (never read)
+    get 0."""
     dev = drec.device
     n = drec.shape[1]
     R = range_span.numel()
-    llen, clen, csrc, lit = drec.to(_I64)
+    llen, clen = drec[:2].to(_I64)
     step = llen.clamp(min=0) + clen.clamp(min=0)
     before = torch.cat([step.new_zeros(1), torch.cumsum(step, 0)])
-    first = range_first[:-1].clamp(0, n)
-    last = torch.maximum(range_first[1:].clamp(0, n), first)
-    # The range of record k: records outside every range are never taken.
+    bounds = scheduled_bounds(range_first, n)
+    first, last = bounds[:-1], bounds[1:]
     cnt = last - first
     pos = torch.zeros(n, dtype=_I64, device=dev)
     rr = torch.repeat_interleave(torch.arange(R, device=dev), cnt)
@@ -493,9 +521,20 @@ def execute_scheduled_plain(drec, range_first, range_out, range_span, comp,
         torch.cumsum(cnt, 0) - cnt)[rr]
     S = range_span.to(_I64).clamp(0, max_span)[rr]
     pos[k] = torch.minimum(before[k] - before[first[rr]], S)
-    crec = torch.stack([pos, llen, clen, csrc, lit]).to(_I32)
-    return execute_ranges_plain(crec, range_first, range_out, range_span,
-                                comp, total_out, max_span)
+    return pos.to(_I32)
+
+
+def execute_scheduled_plain(drec, range_first, range_out, range_span, comp,
+                            total_out: int, max_span: int = RANGE):
+    """Plain torch version of ``execute_scheduled``, the kernel's two steps:
+    ``scheduled_positions`` (where the kernel's cursor stops, it stops too),
+    then ``execute_ranges_plain`` on the positioned records and the ranges
+    as taken (``scheduled_bounds``)."""
+    pos = scheduled_positions(drec, range_first, range_span, max_span)
+    crec = torch.cat([pos[None], drec.to(_I32)])
+    return execute_ranges_plain(
+        crec, scheduled_bounds(range_first, drec.shape[1]), range_out,
+        range_span, comp, total_out, max_span)
 
 
 # --------------------------------------------------------------------------
@@ -518,7 +557,7 @@ def decode_planned(plan: BatchPlan, device="cuda", executor: str = "fast",
         raise ValueError(f"the range executors stage at most {RANGE} bytes "
                          f"and no whole block")
     t = plan.tensors(device) if tensors is None else tensors
-    recs, counts = parse_segments(t["comp"], t["lane_start"], t["lane_len"])
+    recs, counts = parse_planned(t["comp"], t["lane_start"], t["lane_len"])
     if executor == "fast":
         crec, lane_out = compact_records(recs, counts, t["lane_start"],
                                          t["lane_len"], t["lane_lo"],

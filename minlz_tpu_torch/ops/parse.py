@@ -10,7 +10,10 @@ layout always has room.  Unused slots hold zeros.  The records are the
 non-zero rows (kind > 0) of the TPU parse, in row order.
 
 ``parse_segments`` launches the CUDA kernel ``csrc/parse.cu`` for CUDA
-tensors and runs ``parse_segments_plain`` for CPU tensors.
+tensors and runs ``parse_segments_plain`` for CPU tensors;
+``parse_planned`` does the same without the checks that read back from the
+device.  The kernel's algorithm (token table, chain, scans) is stated in
+torch in ``ops/parse_model.py``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ KERNEL = "parse"
 
 
 def _check(comp, lane_start, lane_len):
+    """Types, shapes and devices: no read back from the device."""
     if comp.dtype != torch.uint8 or comp.dim() != 1:
         raise ValueError("comp must be a 1-D uint8 tensor")
     for name, t in (("lane_start", lane_start), ("lane_len", lane_len)):
@@ -36,8 +40,12 @@ def _check(comp, lane_start, lane_len):
             raise ValueError(f"{name} is on {t.device}, comp on {comp.device}")
     if lane_start.shape != lane_len.shape:
         raise ValueError("lane_start and lane_len differ in shape")
-    # The kernel reads comp[lane_start + row] and writes its records to the
-    # lane's own slots, so the lanes must tile comp exactly.
+
+
+def _check_tiling(comp, lane_start, lane_len):
+    """The kernel reads comp[lane_start + row] and writes its records to
+    the lane's own slots, so the lanes must tile comp exactly.  Three reads
+    back from the device."""
     lens = lane_len.to(torch.int64)
     if lens.numel() and (bool((lens < 0).any()) or not torch.equal(
             lane_start.to(torch.int64), torch.cumsum(lens, 0) - lens)
@@ -57,15 +65,29 @@ def parse_segments(comp, lane_start, lane_len):
     exclusive prefix sum of lane_len.  Returns (recs [7, n + lanes] int32,
     counts [lanes] int32)."""
     _check(comp, lane_start, lane_len)
+    _check_tiling(comp, lane_start, lane_len)
+    return _parse(comp, lane_start, lane_len)
+
+
+def parse_planned(comp, lane_start, lane_len):
+    """``parse_segments`` on lane arrays that tile comp by construction, as
+    ``exec_chain.plan_batch``'s do: the tiling is not checked, so nothing
+    is read back from the device."""
+    _check(comp, lane_start, lane_len)
+    return _parse(comp, lane_start, lane_len)
+
+
+def _parse(comp, lane_start, lane_len):
     if comp.device.type == "cpu":
         return parse_segments_plain(comp, lane_start, lane_len)
     if comp.device.type != "cuda":
         raise ValueError(f"no parse kernel for device {comp.device}")
     lanes = lane_len.numel()
     slots = n_slots(comp.numel(), lanes)
-    recs = torch.zeros((N_FIELDS, slots), dtype=torch.int32,
-                       device=comp.device)
-    counts = torch.zeros(lanes, dtype=torch.int32, device=comp.device)
+    # The kernel writes every slot, those past the lanes in its last block.
+    alloc = torch.empty if lanes else torch.zeros
+    recs = alloc((N_FIELDS, slots), dtype=torch.int32, device=comp.device)
+    counts = torch.empty(lanes, dtype=torch.int32, device=comp.device)
     launch_parse(comp.contiguous(), lane_start.contiguous(),
                  lane_len.contiguous(), recs, counts)
     return recs, counts
@@ -74,13 +96,14 @@ def parse_segments(comp, lane_start, lane_len):
 def launch_parse(comp, lane_start, lane_len, recs, counts):
     """The bare launch of the parse kernel: checked, contiguous CUDA
     tensors in, ``recs`` [7, n + lanes] and ``counts`` [lanes] written in
-    place (the kernel leaves unused slots as they are: zero them once).
-    No check, no allocation, no read back; measurements time this."""
+    place, every slot of every lane (unused ones with zeros).  No check, no
+    allocation, no read back; measurements time this."""
     lib = _build.load()
     _build.check(lib, lib.minlz_parse(
-        comp.data_ptr(), lane_start.data_ptr(), lane_len.data_ptr(),
-        lane_len.numel(), recs.data_ptr(), ctypes.c_longlong(recs.shape[1]),
-        counts.data_ptr(), _build.stream_of(comp)))
+        comp.data_ptr(), ctypes.c_longlong(comp.numel()),
+        lane_start.data_ptr(), lane_len.data_ptr(), lane_len.numel(),
+        recs.data_ptr(), ctypes.c_longlong(recs.shape[1]), counts.data_ptr(),
+        _build.stream_of(comp)))
     _build.count_launch(KERNEL)
 
 
@@ -89,6 +112,7 @@ def parse_segments_plain(comp, lane_start, lane_len):
     ``transducer.parse_step`` vectorised over lanes, then a lane-major
     gather of the rows with kind > 0 into the dense slot layout."""
     _check(comp, lane_start, lane_len)
+    _check_tiling(comp, lane_start, lane_len)
     dev = comp.device
     lanes = lane_len.numel()
     slots = n_slots(comp.numel(), lanes)

@@ -6,8 +6,9 @@ shape [lanes].  All lanes consume one compressed byte per step; divergence
 between lanes lives in per-lane state, never in addressing.
 
 It is the body of the plain version of the parse kernel
-(``ops/parse.py::parse_segments_plain``); ``csrc/parse.cu`` runs the same
-step as scalar code, one thread per lane.
+(``ops/parse.py::parse_segments_plain``); ``csrc/parse.cu`` computes the
+same records token by token, not byte by byte (``ops/parse_model.py``
+states how).
 
 Emitted op records (one per row at most; literal runs are held and fused
 onto the next copy token):

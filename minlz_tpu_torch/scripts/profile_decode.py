@@ -50,7 +50,7 @@ def stage_times(road="whole", n_blocks=1, device="cuda", iters=3,
     on_card = torch.device(device).type == "cuda"
 
     def parse_compact():
-        recs, counts = ps.parse_segments(*lanes)
+        recs, counts = ps.parse_planned(*lanes)
         return ec.compact_records(recs, counts, *spans)
 
     def full():
@@ -62,7 +62,7 @@ def stage_times(road="whole", n_blocks=1, device="cuda", iters=3,
             return ec.execute_ranges(*args, plan.max_span)
         return eb.execute_blocks(*args)
 
-    t_parse, (recs, counts) = timed_device(ps.parse_segments, lanes, iters)
+    t_parse, (recs, counts) = timed_device(ps.parse_planned, lanes, iters)
     t_pc, (crec, lane_out) = timed_device(parse_compact, (), iters,
                                           device=device)
     t_full, out = timed_device(full, (), iters, device=device)

@@ -349,3 +349,104 @@ def test_ablate_kernel_matches_plain(variant):
         _same(probe.ablate_exec(*args, variant, chain_rows=chain_rows),
               probe.ablate_exec_plain(*args, variant,
                                       chain_rows=chain_rows))
+
+
+# ---- K1 on lanes made to cross its windows ----------------------------------
+
+def _copy_tokens(rng, n):
+    """n random bytes with no literal-run tag: copy tokens back to back,
+    so the chain runs the whole lane."""
+    b = rng.integers(0, 256, n, dtype=np.uint8)
+    b |= (b & 3 == 0) * rng.integers(1, 4, n, dtype=np.uint8)
+    return b.tobytes()
+
+
+def _parse_lanes(name):
+    from test_torch_common import encode_segs
+
+    rng = np.random.default_rng(17)
+    tail, shift = b"", 0
+    if name == "random":
+        segs = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+                for n in (1, 7, 300, 2049, 4096)]
+    elif name == "long":
+        segs = [_copy_tokens(rng, n) for n in (2047, 2048, 2049, 6000)]
+    elif name == "seg16k":
+        with open(__file__, "rb") as f:
+            text = f.read() * 8
+        segs = encode_segs(text[: 48 << 10], 16 << 10, 0)
+    else:
+        # Lanes of 0 and 1 bytes among long ones, comp not 16-byte aligned
+        # and longer than the lanes: bytes past the last lane are not its.
+        segs = [_copy_tokens(rng, n) for n in (0, 1, 0, 3000, 1, 2063)]
+        # A literal run ends the first window, the next window's copy takes
+        # it, and a header cut short ends the lane: no flush is left.
+        segs.append(b"\x05\x00" * 1020 + b"\xe8\x46" + bytes(100)
+                    + b"\x05\x00\x02")
+        tail, shift = b"\x02\xff\xff" * 9, 3
+    lens = np.array([len(s) for s in segs], np.int32)
+    start = (np.cumsum(lens) - lens).astype(np.int32)
+    comp = np.frombuffer(bytes(shift) + b"".join(segs) + tail + b"\x00",
+                         np.uint8).copy()
+    return (torch.from_numpy(comp)[shift:], torch.from_numpy(start),
+            torch.from_numpy(lens))
+
+
+@pytest.mark.parametrize("name", ["random", "long", "seg16k", "tiling"])
+def test_parse_kernel_on_window_crossing_lanes(name):
+    """Random bytes, copy-token lanes across several windows, 16 KiB
+    segments, and a hostile tiling (empty and 1-byte lanes, unaligned comp
+    with bytes past the lanes): the kernel equals its plain version and the
+    token-level model in every slot, zero tails included."""
+    from minlz_tpu_torch.ops import parse_model as pm
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    args = _parse_lanes(name)
+    recs, counts = parse_segments(*(a.cuda() for a in args))
+    torch.cuda.synchronize()
+    recs_p, counts_p = parse_segments_plain(*args)
+    assert torch.equal(counts.cpu(), counts_p)
+    assert torch.equal(recs.cpu(), recs_p)
+    recs_m, counts_m, _ = pm.parse_segments_model(*args)
+    assert torch.equal(recs_m, recs_p) and torch.equal(counts_m, counts_p)
+
+
+# ---- kernel 7: the cursor scan in front of K3 --------------------------------
+
+@pytest.mark.parametrize("kind", RECORD_KINDS)
+def test_sched_kernel_on_synthetic_records(kind):
+    """The synthetic densities without their position row: the append-only
+    kernel equals its plain version and K3 on the positioned records."""
+    spans = [RANGE, 0, 37, (32 << 10) + 13, RANGE - 1, 100_000]
+    crec, *rest = _batch_on_card(record_batch(kind, spans, seed=3))
+    drec = crec[1:].contiguous()
+    out = tec.execute_scheduled(drec, *rest, RANGE)
+    torch.cuda.synchronize()
+    assert torch.equal(out, tec.execute_scheduled_plain(drec, *rest, RANGE))
+    assert torch.equal(out, tec.execute_ranges(crec, *rest, RANGE))
+
+
+def test_sched_kernel_on_backward_ranges():
+    """range_first that goes backwards, past the records and empty ranges:
+    each record is taken by one range at most, as in the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    g = np.random.default_rng(8)
+    n = 3000
+    drec = np.where(g.random((4, n)) < 0.95, g.integers(-2, 40, (4, n)),
+                    g.integers(-(1 << 31), (1 << 31) - 1, (4, n),
+                               dtype=np.int64)).astype(np.int32)
+    first = torch.tensor([0, 900, 900, 400, 2000, 1500, n, n + 7],
+                         dtype=torch.int64)
+    span = torch.tensor([4096, 100, 2000, 8192, 64, 3000, 17],
+                        dtype=torch.int32)
+    out_off = torch.cumsum(span.to(torch.int64), 0) - span.to(torch.int64)
+    comp = torch.from_numpy(g.integers(0, 256, 5000, dtype=np.uint8))
+    args = (first, out_off, span, comp, int(span.sum()), 8192)
+    out = tec.execute_scheduled(torch.from_numpy(drec).cuda(),
+                                *(a.cuda() if torch.is_tensor(a) else a
+                                  for a in args))
+    torch.cuda.synchronize()
+    want = tec.execute_scheduled_plain(torch.from_numpy(drec), *args)
+    assert torch.equal(out.cpu(), want)

@@ -13,7 +13,9 @@ import torch
 from minlz_tpu.ops import exec_chain as jec
 from minlz_tpu.ops.pallas_decode import parse_segments_pallas
 from minlz_tpu_torch.ops import exec_chain as tec
+from minlz_tpu_torch.ops import resolve_model as trm
 from minlz_tpu_torch.ops.parse import parse_segments
+from minlz_tpu_torch.testing import RECORD_KINDS, record_batch
 
 from test_exec_chain import COMP, ROW, run_ops
 from test_torch_common import dense_ops_to_records, encode_segs
@@ -244,3 +246,119 @@ def test_dense_compaction_clamps_hostile_fields():
     assert lane_out.tolist() == [0, 2]
     assert drec.tolist() == [[7, 0, 2 ** 31 - 1], [0, 40, 3],
                              [1, 1, 2 ** 31 - 1], [0, 10, 14]]
+
+
+# ---- the kernel's composition: a cursor scan, then K3's tiled resolution ----
+
+def sequential_ranges(drec, first, out_off, span, comp, total_out, max_span):
+    """The append-only executor walked record by record in Python ints, the
+    clamps of its docstring: bytes outside every range are 0."""
+    out = bytearray(total_out)
+    n = drec.shape[1]
+    for r in range(len(span)):
+        # A range that goes backwards takes back no earlier record.
+        lo = max(min(max(int(f), 0), n) for f in first[:r + 1])
+        hi = max(min(max(int(first[r + 1]), 0), n), lo)
+        S = min(max(int(span[r]), 0), max_span)
+        buf = bytearray(S)
+        cur = 0
+        for k in range(lo, hi):
+            llen, clen, csrc, lit = (int(v) for v in drec[:, k])
+            ll = min(max(llen, 0), S - cur)
+            for i in range(ll):
+                g = min(max(lit + i, 0), len(comp) - 1)
+                buf[cur + i] = int(comp[g]) if len(comp) else 0
+            cur += ll
+            cl = min(max(clen, 0), S - cur)
+            csrc = max(csrc, 1)
+            for i in range(cl):
+                s = cur - csrc + (i % csrc if csrc < cl else i)
+                buf[cur + i] = buf[s] if s >= 0 else 0
+            cur += cl
+        o = int(out_off[r])
+        out[o:o + S] = buf
+    return bytes(out)
+
+
+def composed(drec, first, out_off, span, comp, total_out, max_span, sub):
+    """What the card runs: scheduled_positions, then K3's sub-tiled
+    resolution (ops/resolve_model.py) on the positioned records."""
+    pos = tec.scheduled_positions(drec, first, span, max_span)
+    crec = torch.cat([pos[None], drec])
+    bounds = tec.scheduled_bounds(first, drec.shape[1])
+    out, _ = trm.execute_ranges_tiled(crec, bounds, out_off, span, comp,
+                                      total_out, max_span, sub)
+    return out
+
+
+@pytest.mark.parametrize("sub", [256, 4096, trm.SUB])
+@pytest.mark.parametrize("kind", RECORD_KINDS)
+def test_scan_then_resolve_matches_plain(kind, sub):
+    """Synthetic densities: the records of ``record_batch`` without their
+    position row.  Spans of 0, odd sizes and the full 128 KiB."""
+    spans = [RANGE, 0, 37, 5000, RANGE - 1]
+    crec, first, out_off, span, comp, total = (
+        torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+        for a in record_batch(kind, spans, seed=2, n_comp=1 << 16))
+    drec = crec[1:].contiguous()
+    args = (drec, first, out_off, span, comp, total, RANGE)
+    want = tec.execute_scheduled_plain(*args)
+    assert torch.equal(composed(*args, sub), want)
+    assert torch.equal(tec.execute_scheduled(*args), want)
+    # Back to back from 0: the scan gives the records their positions.
+    assert torch.equal(want, tec.execute_ranges_plain(crec, *args[1:]))
+
+
+HOSTILE_DREC = (
+    # llen, clen, csrc, lit
+    (4, 10, 2, 0),
+    (-7, 0, 1, 0),             # negative literal length
+    (3, -9, 0, 100),           # negative copy length, csrc 0 -> 1
+    (2, 5, -40, 3),            # negative csrc
+    (0, 12, 1 << 30, 0),       # a source far before the range: zeros
+    (6, 3, 1, -20),            # literal index before comp
+    (5, 7, 3, 1 << 30),        # literal index past comp
+    (2 ** 31 - 1, 5, 1, 0),    # sums past the span: the cursor stops
+    (5, 2 ** 31 - 1, 1, 0),
+    (9, 9, 9, 9),
+)
+
+
+@pytest.mark.parametrize("sub", [64, 1024])
+def test_scan_then_resolve_on_hostile_records(sub):
+    """Hostile fields, ranges that are empty, inverted or past the record
+    list: the composition, the plain version and a record-by-record walk
+    agree, and the scan's positions never pass the span."""
+    drec = torch.tensor(HOSTILE_DREC * 3, dtype=torch.int32).T.contiguous()
+    n = drec.shape[1]
+    first = torch.tensor([0, 7, 7, 4, 18, n, n + 5], dtype=torch.int64)
+    span = torch.tensor([300, 64, 50, 2000, 700, 10], dtype=torch.int32)
+    out_off = torch.cumsum(span.to(torch.int64), 0) - span.to(torch.int64)
+    total = int(span.sum())
+    comp = torch.from_numpy(COMP[:500].copy())
+    for c in (comp, comp[:0]):
+        args = (drec, first, out_off, span, c, total, 2000)
+        want = tec.execute_scheduled_plain(*args)
+        assert torch.equal(composed(*args, sub), want)
+        assert want.numpy().tobytes() == sequential_ranges(
+            drec.numpy(), first.numpy(), out_off.numpy(), span.numpy(),
+            c.numpy(), total, 2000)
+    pos = tec.scheduled_positions(drec, first, span, 2000)
+    assert pos[:7].tolist() == [0, 14, 14, 17, 24, 36, 45]
+    # Range 3 ([4, 18) as given) takes records 7 to 17 only, and its first
+    # record's literals fill its span: the cursor stops there.
+    assert tec.scheduled_bounds(first, n).tolist() == [0, 7, 7, 7, 18, n, n]
+    assert pos[7:18].tolist() == [0] + [2000] * 10
+    assert pos[18] == 0 and int(pos[18:].max()) == 700
+
+
+def test_scheduled_positions_are_the_cursor():
+    """Exclusive sums of the clamped lengths per range, in int64 (two
+    lengths near 2^31 do not wrap), stopped at the span."""
+    drec = torch.tensor([(5, 3, 1, 0), (-2, 4, 1, 0), (2 ** 31 - 1,
+                         2 ** 31 - 1, 1, 0), (1, 1, 1, 0), (7, 0, 1, 0),
+                         (2, 2, 1, 0)], dtype=torch.int32).T.contiguous()
+    first = torch.tensor([0, 4, 6], dtype=torch.int64)
+    span = torch.tensor([100, 5], dtype=torch.int32)
+    pos = tec.scheduled_positions(drec, first, span, 100)
+    assert pos.tolist() == [0, 8, 12, 100, 0, 5]
