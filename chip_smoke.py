@@ -28,9 +28,16 @@ The parse kernel (K1) is held against its plain version on random bytes,
 literal runs, RLE tokens, lanes of copy tokens across its windows and 16 KiB
 segments, against its token model (ops/parse_model.py) on whole batches, and
 timed ("time parse" lines: alone, and through both wrappers) on the corpus
-and three made-up batches.  Then it times each phase.  It imports nothing of jax or of the
-JAX package.  Prints a JSON line of kernel results, then, as its last
-line, {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
+and three made-up batches.  The greedy kernel is held against its plain
+version, through its wrapper and as a bare launch into an output filled
+with 0x7f7f7f7f, and timed ("time greedy" lines: alone and through
+greedy_parse, tokens a lane, registers and shared memory a block) on the
+encode batch's proposals, hostile int32, no candidate, every length 4 and
+one lane-long match; kernel 6 is timed alone beside its wrapper ("time
+compact_dense alone").  Then it times each phase.  It imports nothing of
+jax or of the JAX package.  Prints a JSON line of kernel results, then, as
+its last line, {"ok": true, "device": {...}}.  Any failure raises and exits
+non-zero.
 
     python3 chip_smoke.py
 """
@@ -543,6 +550,92 @@ def time_parse(label, args, card):
     return alone, planned, wrapper
 
 
+GREEDY_CORPUS = f"the corpus, {ENCODE_BATCH} x 1 MiB"
+SENTINEL = 0x7F7F7F7F
+
+
+def queued_ms(fn, n=20, repeats=REPEATS):
+    """Median device milliseconds per call of fn(), n calls queued behind a
+    spin kernel, so that the host's launch cost is hidden: the calls run
+    back to back on the card, as in a pipeline that keeps it fed."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        torch.cuda._sleep(20_000_000)  # ~10 ms: the host enqueues meanwhile
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
+def greedy_inputs(g_off, g_len, dev):
+    """The five inputs of the "time greedy" lines, each [4096, SEG] int32:
+    the corpus's proposals, hostile int32, and three made from a seed: no
+    candidate (every length below 4), every length exactly 4 (the longest
+    chain, a token every 4 positions), and one match as long as the lane at
+    its first position."""
+    lanes = g_off.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(0x6EED)
+
+    def rand(lo, hi):
+        return torch.randint(lo, hi, (lanes, SEG), generator=g,
+                             dtype=torch.int32).to(dev)
+
+    one = rand(0, 12)
+    one[:, 0] = SEG
+    return {
+        GREEDY_CORPUS: (g_off, g_len),
+        "hostile int32": hostile_proposals(HOSTILE_LANES, SEG, dev),
+        "no candidates": (rand(-1, 3), rand(-3, 4)),
+        "every length 4": (rand(-1, 3), torch.full((lanes, SEG), 4,
+                                                   dtype=torch.int32,
+                                                   device=dev)),
+        "one lane-long match at position 0": (rand(-1, 3), one),
+    }
+
+
+def time_greedy(label, off, length, card):
+    """A "time greedy" line: the kernel alone (the bare launch into an
+    output filled with SENTINEL, which must come out equal to the plain
+    version's, as must greedy_parse's), greedy_parse queued and as one
+    call, tokens per lane, and what the card made of the kernel."""
+    from minlz_tpu_torch.ops import greedy as tg
+
+    lanes, seg = off.shape
+    out = torch.full((4, lanes, seg), SENTINEL, dtype=torch.int32,
+                     device=off.device)
+    tg.launch_greedy(off, length, seg, out)
+    wrapped = tg.greedy_parse(off, length, seg)
+    torch.cuda.synchronize()
+    plain, p_ms = once_ms(lambda: tg.greedy_parse_plain(off, length, seg))
+    err = 0
+    for k, nm in enumerate(("take", "tok_off", "tok_len", "is_rep")):
+        err = max(err,
+                  require_equal(f"greedy {nm}, {label}", out[k], plain[k]),
+                  require_equal(f"greedy_parse {nm}, {label}", wrapped[k],
+                                plain[k]))
+    tokens = int(out[0].sum())
+    del plain, wrapped
+    alone = queued_ms(lambda: tg.launch_greedy(off, length, seg, out))
+    wrapper = queued_ms(lambda: tg.greedy_parse(off, length, seg))
+    once = cuda_ms(lambda: tg.greedy_parse(off, length, seg))
+    a = tg.kernel_attrs()
+    log(f"time greedy {label}: {lanes} lanes x {seg} positions, {tokens} "
+        f"tokens = {tokens / lanes:.1f} a lane; alone {alone:.4f} ms, "
+        f"greedy_parse {wrapper:.4f} ms queued, {once:.4f} ms as one call; "
+        f"{a['registers']} registers a thread, {a['shared_bytes']} bytes of "
+        f"shared memory and {a['threads']} threads a block, "
+        f"{a['blocks_per_sm']} blocks resident a SM  [{card}]")
+    return {"err": err, "tokens": tokens, "wrapper_once": once,
+            "plain_ms": p_ms}
+
+
 def compare_synthetic(dev, card, err):
     """exec_range and exec_block against their plain versions on records
     made for the parallel resolution, then their times at three synthetic
@@ -782,6 +875,21 @@ def main():
         16 * n_recs + 20 * lanes + 16 * n_recs + 8 * lanes, 10 * n_recs)
     bounds["exec_sched"] = bound(16 * n_recs + 16 * n_ranges + n_comp
                                  + plan.total_out, 2 * plan.total_out)
+    # Kernel 6 alone: the bare launch into a preallocated output, queued,
+    # beside its wrapper (lane_offsets reads the total back, then allocates).
+    lane_out_c, total_c = ec.lane_offsets(counts)
+    d_args = [x.contiguous() for x in (recs, t["lane_start"], t["lane_len"],
+                                       counts, lane_out_c)]
+    d_out = torch.full((4, total_c), SENTINEL, dtype=torch.int32,
+                       device=dev)
+    dense_alone = queued_ms(
+        lambda: ec.launch_compact(ec.COMPACT_DENSE, d_args, d_out))
+    require_equal("compact_dense, bare launch", d_out, drec)
+    log(f"time compact_dense alone: {dense_alone:.4f} ms queued, "
+        f"compact_records_dense {k_ms['compact_dense']:.4f} ms as one call; "
+        f"bound {bounds['compact_dense'][0]:.4f} ms ({n_recs} records, "
+        f"{lanes} lanes)  [{card}]")
+    del d_out, d_args
     del drec_p, out_s, out_sp, recs_p, crec_p, out_p
 
     # ---- 3c. the whole-block road: the same blocks without the clamp -----
@@ -908,7 +1016,7 @@ def main():
     log(f"find_matches_dyn: cuda == cpu on a 1 MiB block, "
         f"{int((gd > 0).sum())} proposals")
 
-    # ---- 5. the greedy kernel against its plain version ------------------
+    # ---- 5. the greedy kernel against its plain version, and its time -----
     nb = ENCODE_BATCH
     enc_in = torch.from_numpy(np.frombuffer(corpus[: nb * MB], np.uint8)
                               .reshape(nb, MB).copy()).to(dev)
@@ -917,33 +1025,24 @@ def main():
     g_off = dist.to(torch.int32).reshape(-1, SEG)
     g_len = length.to(torch.int32).reshape(-1, SEG)
     del dist, length
-    g_names = ("take", "tok_off", "tok_len", "is_rep")
-    g_kern = tg.greedy_parse(g_off, g_len, SEG)
-    torch.cuda.synchronize()
-    g_plain, plain_ms["greedy"] = once_ms(
-        lambda: tg.greedy_parse_plain(g_off, g_len, SEG))
-    err["greedy"] = max(require_equal(f"greedy {nm}", k, p)
-                        for nm, k, p in zip(g_names, g_kern, g_plain))
-    n_tokens = int(g_kern[0].sum())
-    h_off, h_len = hostile_proposals(HOSTILE_LANES, SEG, dev)
-    h_kern = tg.greedy_parse(h_off, h_len, SEG)
-    torch.cuda.synchronize()
-    h_plain = tg.greedy_parse_plain(h_off, h_len, SEG)
-    err["greedy"] = max(err["greedy"], *(
-        require_equal(f"greedy, hostile input, {nm}", k, p)
-        for nm, k, p in zip(g_names, h_kern, h_plain)))
-    torch.cuda.synchronize()
-    log(f"greedy kernel == plain version (tolerance 0: integers) on "
-        f"{g_off.shape[0]} lanes x {SEG} positions of real proposals "
-        f"({n_tokens} tokens) and on {HOSTILE_LANES} lanes of hostile "
-        f"int32 ({int(h_kern[0].sum())} tokens), no CUDA fault")
-    k_ms["greedy"] = cuda_ms(lambda: tg.greedy_parse(g_off, g_len, SEG))
+    err["greedy"] = 0
+    g_lines = {}
+    for label, (o, ln) in greedy_inputs(g_off, g_len, dev).items():
+        g_lines[label] = time_greedy(label, o, ln, card)
+        err["greedy"] = max(err["greedy"], g_lines[label]["err"])
+    corpus_g = g_lines[GREEDY_CORPUS]
+    n_tokens = corpus_g["tokens"]
+    plain_ms["greedy"] = corpus_g["plain_ms"]
+    k_ms["greedy"] = corpus_g["wrapper_once"]
+    log(f"greedy kernel == plain version (tolerance 0: integers), through "
+        f"greedy_parse and through launch_greedy into an output filled with "
+        f"0x7f7f7f7f, on {len(g_lines)} inputs of {g_off.shape[0]} lanes x "
+        f"{SEG} positions ({n_tokens} tokens on the corpus), no CUDA fault")
     # off and len in (8 bytes per position), four int32 outputs out (16);
-    # a ballot, a find-first-set, two shuffles and some arithmetic per
-    # token: about 16 operations per token and 4 per position loaded.
+    # about 8 operations per position (candidate test, suffix minimum, hop)
+    # and 8 per token (a chain step and its mark).
     bounds["greedy"] = bound(24 * g_off.numel(),
-                             16 * n_tokens + 4 * g_off.numel())
-    del g_kern, g_plain, h_kern, h_plain, h_off, h_len
+                             8 * g_off.numel() + 8 * n_tokens)
 
     # ---- 6. main paths: Writer -> Reader on the card ---------------------
     path_launches, stream_len = {}, {}
@@ -1191,7 +1290,7 @@ def main():
     log(f"peak device memory, encode_block_emit on 16 x 1 MiB: "
         f"{emit_peak / (1 << 20):.0f} MiB  [{card}]")
     shapes = {"parse": "8 x 1 MiB batch, through parse_planned",
-              "greedy": "16 x 1 MiB batch",
+              "greedy": "16 x 1 MiB batch, greedy_parse as one call",
               "exec_block": "8 x 1 MiB batch without the clamp",
               "compact_whole": "8 x 1 MiB batch without the clamp",
               "probe_scalar": f"{SCALAR_STEPS} steps x "

@@ -65,6 +65,8 @@ _SIGNATURES = {
                           ctypes.c_int, _P],
     # off, len, lanes, seg, take, tok_off, tok_len, is_rep, stream
     "minlz_greedy": [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P],
+    # out[4]: registers, shared bytes, threads, resident blocks a SM
+    "minlz_greedy_attrs": [_P],
     # rows, n_ops, n_chains, n_rows, buf, shared, stream
     "minlz_probe_scalar": [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
                            ctypes.c_int, _P],

@@ -12,10 +12,14 @@ lane, with ``skip = 0`` and ``rep = -1``, at each position ``r`` in order::
 
 ``greedy_parse`` launches the CUDA kernel ``csrc/greedy.cu`` for CUDA
 tensors and runs ``greedy_parse_plain`` for CPU tensors.  ``off`` and
-``length`` are proposals and may hold any int32.
+``length`` are proposals and may hold any int32.  The kernel's algorithm
+(windows staged in shared memory, a next-candidate table, a token chain) is
+stated in torch in ``ops/greedy_model.py``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -49,17 +53,34 @@ def greedy_parse(off, length, seg: int = SEG):
         return greedy_parse_plain(off, length, seg)
     if off.device.type != "cuda":
         raise ValueError(f"no greedy kernel for device {off.device}")
-    lanes = off.shape[0]
-    # The kernel writes the token positions only; the rest stays zero.
-    out = torch.zeros((4, lanes, seg), dtype=torch.int32, device=off.device)
-    lib = _build.load()
+    out = torch.empty((4, off.shape[0], seg), dtype=torch.int32,
+                      device=off.device)
     with torch.cuda.device(off.device):
-        _build.check(lib, lib.minlz_greedy(
-            off.data_ptr(), length.data_ptr(), lanes, seg,
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            out[3].data_ptr(), _build.stream_of(off)))
-    _build.count_launch(KERNEL)
+        launch_greedy(off, length, seg, out)
     return out[0], out[1], out[2], out[3]
+
+
+def launch_greedy(off, length, seg: int, out):
+    """The bare launch of the greedy kernel: checked, contiguous CUDA
+    tensors in, ``out`` [4, B, seg] int32 (take, tok_off, tok_len, is_rep)
+    written in place, every element (any contents before).  No check, no
+    allocation; measurements time this."""
+    lib = _build.load()
+    _build.check(lib, lib.minlz_greedy(
+        off.data_ptr(), length.data_ptr(), off.shape[0], seg,
+        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+        out[3].data_ptr(), _build.stream_of(off)))
+    _build.count_launch(KERNEL)
+
+
+def kernel_attrs() -> dict:
+    """What the card made of the kernel: registers a thread, static shared
+    memory a block (bytes), threads a block, blocks resident on one SM."""
+    lib = _build.load()
+    got = (ctypes.c_int * 4)()
+    _build.check(lib, lib.minlz_greedy_attrs(got))
+    return dict(zip(("registers", "shared_bytes", "threads", "blocks_per_sm"),
+                    got))
 
 
 def greedy_parse_plain(off, length, seg: int = SEG):

@@ -1,7 +1,9 @@
 """Measure the all-device encode (``emit.encode_block_emit``: match find,
 greedy parse, verify, token emission) on one corpus block: device time per
-MB and ratio, against the host serializer on the same match proposals.  The
-emitted block is decoded by the spec oracle.
+MB and ratio, then the time of each stage (the greedy parse also as its
+kernel alone, the bare launch into a preallocated output), against the host
+serializer on the same match proposals.  The emitted block is decoded by the
+spec oracle.
 
     python -m minlz_tpu_torch.scripts.emit_probe [--device cuda|cpu]
         [--block-kb 1024] [--iters 3]
@@ -20,9 +22,49 @@ from ..minlz import put_uvarint
 from ..native.build import build_error
 from ..native.codec import get_codec
 from ..ops import encode_kernel as ek
+from ..ops import greedy as tg
 from ..ops.device_codec import RANGE, SEG, WINDOW
-from ..ops.emit import encode_block_emit
+from ..ops.emit import emit_segments, encode_block_emit, verify_extend
 from ..oracle import decode as odec
+
+
+def stage_split(flat, n: int, iters: int, where: str) -> dict:
+    """Seconds of each stage of ``encode_block_emit`` on ``flat`` [1, n],
+    as it runs them, and of the greedy kernel alone on the card (None on the
+    CPU, where there is no kernel)."""
+    dev = flat.device
+    on_card = dev.type == "cuda"
+    ns = [n]
+    t_find, (dist, length) = timed_device(
+        lambda f: ek.find_matches_dyn(f, ns, SEG, RANGE), (flat,), iters)
+    off = dist.to(torch.int32).reshape(-1, SEG)
+    lens = length.to(torch.int32).reshape(-1, SEG)
+    t_greedy, (take, tok_off, _, _) = timed_device(
+        lambda: tg.greedy_parse(dist.to(torch.int32).reshape(-1, SEG),
+                                length.to(torch.int32).reshape(-1, SEG),
+                                SEG), (), iters, device=dev)
+    alone = None
+    if on_card:
+        out = torch.empty((4, *off.shape), dtype=torch.int32, device=dev)
+        alone, _ = timed_device(lambda: tg.launch_greedy(off, lens, SEG, out),
+                                (), iters, device=dev)
+        if not torch.equal(out[0], take) or not torch.equal(out[1], tok_off):
+            raise AssertionError("the bare greedy launch differs from "
+                                 "greedy_parse")
+    take, tok_off = take.reshape(1, n), tok_off.reshape(1, n)
+    t_verify, (surv, vlen) = timed_device(
+        lambda: verify_extend(flat, take, tok_off, ns, SEG), (), iters,
+        device=dev)
+    t_emit, _ = timed_device(
+        lambda: emit_segments(flat, surv, tok_off, vlen, ns, SEG), (), iters,
+        device=dev)
+    per_mb = n / MB
+    res = {"match_find": t_find, "greedy": t_greedy, "greedy_alone": alone,
+           "verify_extend": t_verify, "emit_segments": t_emit}
+    print("stages, ms/MB: " + ", ".join(
+        f"{k} " + ("not measured" if v is None else f"{v * 1e3 / per_mb:.4f}")
+        for k, v in res.items()) + f"  [{where}]", flush=True)
+    return res
 
 
 def main(argv=None) -> int:
@@ -55,6 +97,7 @@ def main(argv=None) -> int:
         raise AssertionError("the emitted block does not decode to its "
                              "input")
     print("emit stream decodes bit-exact")
+    stage_split(flat, n, opt.iters, where)
 
     # The host path on the same match proposals: the serializer's cost.
     codec = get_codec()

@@ -77,6 +77,65 @@ def greedy_reference(off, length):
     return out
 
 
+GREEDY_WINDOWS = (64, 256, 512, 4096)
+
+
+def greedy_edge_cases(seg: int, windows=GREEDY_WINDOWS):
+    """Proposals made to corner the greedy chain, [lanes, seg] int32 each,
+    from a seed: no candidate at all; every length exactly 4 (the longest
+    chain); a first token whose offset is -1 (the initial rep); a length of
+    2^31 - 1 at the first and at the last position; lengths of -2^31; for
+    each window size, tokens ending exactly on every window boundary and a
+    token that crosses two boundaries."""
+    rng = np.random.default_rng(seg)
+    info = np.iinfo(np.int32)
+
+    def tame(lanes):
+        return (rng.integers(-1, 3, (lanes, seg)).astype(np.int32),
+                rng.integers(0, 12, (lanes, seg)).astype(np.int32))
+
+    def fours(lanes):
+        return (rng.integers(-1, 3, (lanes, seg)).astype(np.int32),
+                np.full((lanes, seg), 4, np.int32))
+
+    cases = {}
+    off = rng.integers(info.min, info.max, (3, seg), dtype=np.int64)
+    cases["no_candidates"] = (off.astype(np.int32),
+                              rng.integers(-5, 4, (3, seg)).astype(np.int32))
+    cases["every_length_4"] = fours(3)
+    off, length = tame(3)
+    off[:, 0], length[:, 0] = -1, 5
+    off[2, :8] = -1
+    cases["first_off_minus_one"] = (off, length)
+    off, length = tame(2)
+    length[:, 0] = info.max
+    cases["max_len_first"] = (off, length)
+    off, length = tame(3)
+    length[:, -1] = info.max
+    length[2] = np.minimum(length[2], 3)
+    length[2, -1] = info.max
+    cases["max_len_last"] = (off, length)
+    off, length = tame(3)
+    length[rng.random((3, seg)) < 0.3] = info.min
+    length[:, 0] = info.min
+    cases["min_len"] = (off, length)
+    ends, crosses = [], []
+    for w in windows:
+        if w < seg:
+            off, length = fours(1)
+            length[0, w - 8::w] = 8
+            ends.append((off, length))
+        if 3 * w < seg:
+            off, length = fours(1)
+            length[0, w - 4] = 2 * w + 8
+            crosses.append((off, length))
+    for name, lanes in (("ends_on_window_boundary", ends),
+                        ("crosses_two_windows", crosses)):
+        if lanes:
+            cases[name] = tuple(np.concatenate(a) for a in zip(*lanes))
+    return cases
+
+
 def encode_segs(data: bytes, seg: int, rng: int, level: int = 2):
     """The port's CPU encode of one block, checked against the oracle, as
     the list of its segments' compressed bytes."""

@@ -275,6 +275,112 @@ def test_greedy_kernel_matches_plain():
         assert int(kern[0].sum()) > 0
 
 
+# ---- kernel 8 across its windows --------------------------------------------
+
+GREEDY_SEGS = [1000, 1003, 4096, 16384]
+
+
+def _greedy_lanes(seg):
+    """The edge cases of test_torch_common.greedy_edge_cases and random
+    lanes, stacked: an odd lane count (one thread block a lane)."""
+    from test_torch_common import greedy_edge_cases, random_proposals
+
+    parts = list(greedy_edge_cases(seg).values())
+    parts.append(random_proposals(seg, 5, seg, hostile=False))
+    parts.append(random_proposals(seg + 1, 4, seg, hostile=True))
+    off, length = (np.concatenate(a) for a in zip(*parts))
+    if off.shape[0] % 2 == 0:
+        off, length = off[1:], length[1:]
+    return np.ascontiguousarray(off), np.ascontiguousarray(length)
+
+
+def _greedy_plain(off, length):
+    from minlz_tpu_torch.ops import greedy as tg
+
+    return torch.stack(tg.greedy_parse_plain(
+        torch.from_numpy(off), torch.from_numpy(length), off.shape[1]))
+
+
+@pytest.mark.parametrize("seg", GREEDY_SEGS)
+def test_greedy_kernel_on_edge_cases(seg):
+    """No candidate, every length 4, a first offset of -1, lengths of
+    2^31 - 1 and -2^31, tokens ending on and crossing window boundaries,
+    random and hostile lanes; seg 1003 takes the scalar loads of rows that
+    are not 16-byte aligned.  All four outputs equal the plain version's
+    and the windowed model's."""
+    from minlz_tpu_torch.ops import greedy as tg
+    from minlz_tpu_torch.ops import greedy_model as gm
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    off, length = _greedy_lanes(seg)
+    kern = tg.greedy_parse(torch.from_numpy(off).cuda(),
+                           torch.from_numpy(length).cuda(), seg)
+    torch.cuda.synchronize()
+    want = _greedy_plain(off, length)
+    assert torch.equal(torch.stack(kern).cpu(), want)
+    model, _ = gm.greedy_parse_model(torch.from_numpy(off),
+                                     torch.from_numpy(length), seg)
+    assert torch.equal(torch.stack(model), want)
+
+
+def test_greedy_launch_writes_every_element():
+    """launch_greedy into an output filled with 0x7f7f7f7f: every element
+    comes out right, so the wrapper needs no zero fill."""
+    from minlz_tpu_torch.ops import greedy as tg
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    for seg in (4096, 1003):
+        off, length = _greedy_lanes(seg)
+        out = torch.full((4, off.shape[0], seg), 0x7F7F7F7F,
+                         dtype=torch.int32, device="cuda")
+        tg.launch_greedy(torch.from_numpy(off).cuda(),
+                         torch.from_numpy(length).cuda(), seg, out)
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), _greedy_plain(off, length))
+
+
+def test_greedy_kernel_on_unaligned_rows():
+    """Contiguous inputs that start 4 bytes past a 16-byte boundary."""
+    from minlz_tpu_torch.ops import greedy as tg
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    off, length = _greedy_lanes(4096)
+    lanes, seg = off.shape
+
+    def shifted(a):
+        flat = torch.from_numpy(np.concatenate([[7], a.ravel()])
+                                .astype(np.int32)).cuda()
+        return flat[1:].view(lanes, seg)
+
+    toff, tlen = shifted(off), shifted(length)
+    assert toff.is_contiguous() and toff.data_ptr() % 16 != 0
+    kern = tg.greedy_parse(toff, tlen, seg)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.stack(kern).cpu(), _greedy_plain(off, length))
+
+
+def test_greedy_wrapper_rejects_on_the_card():
+    """The checks of greedy._check hold for CUDA tensors too."""
+    from minlz_tpu_torch.ops import greedy as tg
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    off = torch.zeros((4, 64), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="int32"):
+        tg.greedy_parse(off.to(torch.int64), off, 64)
+    with pytest.raises(ValueError, match=r"\[B, 32\]"):
+        tg.greedy_parse(off, off, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        tg.greedy_parse(off.t().contiguous().t(), off, 64)
+    with pytest.raises(ValueError, match="int32"):
+        tg.greedy_parse(off[0], off[0], 64)
+    with pytest.raises(ValueError, match="off is on"):
+        tg.greedy_parse(off, off.cpu(), 64)
+
+
 # ---- the probe kernels ----------------------------------------------------
 
 def _cuda(*arrays):
