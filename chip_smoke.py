@@ -34,7 +34,17 @@ with 0x7f7f7f7f, and timed ("time greedy" lines: alone and through
 greedy_parse, tokens a lane, registers and shared memory a block) on the
 encode batch's proposals, hostile int32, no candidate, every length 4 and
 one lane-long match; kernel 6 is timed alone beside its wrapper ("time
-compact_dense alone").  Then it times each phase.  It imports nothing of
+compact_dense alone").  The mesh path writes the corpus through
+Writer(mesh=...) on one NCCL rank (this process) and reads it back on the
+card: its bytes are the device_emit stream's; the mesh encode is timed with
+its all-gathers' share, the same Writer runs on one and on two gloo ranks
+sharing the card ("time mesh" lines), and dryrun_multichip runs its five
+phases on every card over NCCL.  The search path writes the corpus, with
+patterns planted, through Writer(search_table=SearchTableConfig()) (tables
+built on the card by build_tables_device), reads it back, holds every
+block's table and a match_len/bits sweep of bitmaps against the NumPy
+builder, and searches it with BlockSearcher ("time search" line).  Then it
+times each phase.  It imports nothing of
 jax or of the JAX package.  Prints a JSON line of kernel results, then, as
 its last line, {"ok": true, "device": {...}}.  Any failure raises and exits
 non-zero.
@@ -258,7 +268,7 @@ def round_trip(label, corpus, dev, clamp=True, block_size=MB,
     card and Reader on the host.  ``clamp=False`` switches the encoder's
     range clamp off around the Writer, so that its hints carry range 0.
     The launch counts are set to 0 just before and read just after.
-    Returns (launch counts, stream length)."""
+    Returns (launch counts, stream bytes)."""
     from minlz_tpu_torch import _build
     from minlz_tpu_torch.ops import device_codec
     from minlz_tpu_torch.stream import Reader, Writer
@@ -293,7 +303,7 @@ def round_trip(label, corpus, dev, clamp=True, block_size=MB,
     log(f"main path ({label}): {len(corpus) // MB} MiB -> {len(stream)} "
         f"bytes (ratio {len(stream) / len(corpus):.4f}); {n} of {n} blocks "
         f"encoded and {n} of {n} decoded on the device; launches {launches}")
-    return launches, len(stream)
+    return launches, stream
 
 
 def run_script(main_fn, argv, prefix):
@@ -720,6 +730,203 @@ def compare_synthetic(dev, card, err):
         log_block_phases(f"{kind} records, {BATCH_BLOCKS} x 1 MiB", args,
                          card)
 
+def mesh_path(corpus, dev, card, emit_stream):
+    """The mesh path: the corpus through Writer(mesh=...) on one NCCL rank
+    (this process, the card the run was given) and back through
+    Reader(device=...); its bytes are the device_emit stream's.  Then the
+    mesh encode's time and its all-gathers' share, the same Writer on one
+    and on two gloo ranks sharing the card, and dryrun_multichip on every
+    card over NCCL.  Returns the launch counts of the one-rank run."""
+    import tempfile
+    from functools import partial
+
+    import torch.distributed as dist
+
+    from minlz_tpu_torch.entry import dryrun_multichip
+    from minlz_tpu_torch.ops.device_codec import RANGE, DeviceCodec
+    from minlz_tpu_torch.parallel import make_mesh, ranks
+    from minlz_tpu_torch.parallel.mesh import all_gather, sharded_encode_blocks
+
+    rdzv = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    dist.init_process_group("nccl", init_method=f"file://{rdzv}/rdzv",
+                            world_size=1, rank=0, device_id=dev)
+    try:
+        mesh = make_mesh(device=dev)
+        launches, stream = round_trip("mesh", corpus, dev, mesh=mesh)
+        if stream != emit_stream:
+            raise AssertionError("the mesh stream differs from the "
+                                 "device_emit stream")
+        codec = DeviceCodec(dev)
+        batch = [corpus[i * MB:(i + 1) * MB] for i in range(ENCODE_BATCH)]
+        enc_ms = host_ms(lambda: codec.encode_batch_mesh(mesh, batch, LEVEL))
+        # The all-gathers of encode_batch_mesh at its shapes: the sizes
+        # (the offset scan), the segment lengths, the segment bytes.
+        arr = torch.from_numpy(np.frombuffer(
+            corpus[:ENCODE_BATCH * MB], np.uint8).reshape(ENCODE_BATCH, MB)
+            .copy()).to(dev)
+        out, lens, sizes, _ = sharded_encode_blocks(
+            mesh, arr, [MB] * ENCODE_BATCH, SEG, RANGE, LEVEL)
+        longest = int(lens.max())
+        gather_ms = cuda_ms(lambda: (
+            all_gather(mesh, sizes), all_gather(mesh, lens),
+            all_gather(mesh, out[:, :, :longest])))
+        coll_ms = cuda_ms(lambda: sharded_encode_blocks(
+            mesh, arr, [MB] * ENCODE_BATCH, SEG, RANGE, LEVEL), repeats=3)
+        alone_ms = cuda_ms(lambda: sharded_encode_blocks(
+            mesh, arr, [MB] * ENCODE_BATCH, SEG, RANGE, LEVEL,
+            collectives=False), repeats=3)
+        del arr, out, lens, sizes
+        opts = dict(level=LEVEL, block_size=MB)
+        _, nccl_1 = ranks.write_stream(mesh, corpus, opts, repeats=2)
+    finally:
+        dist.destroy_process_group()
+    log(f"time mesh encode_batch_mesh, 1 NCCL rank, {ENCODE_BATCH} x 1 MiB "
+        f"host bytes in/out: {enc_ms / ENCODE_BATCH:.4f} ms/MB, of which "
+        f"the three all-gathers {gather_ms:.4f} ms "
+        f"({100 * gather_ms / enc_ms:.2f} %); sharded_encode_blocks "
+        f"device-resident {coll_ms / ENCODE_BATCH:.4f} ms/MB with its size "
+        f"scan, {alone_ms / ENCODE_BATCH:.4f} ms/MB without  [{card}]")
+
+    # One and two gloo ranks sharing this card: gloo takes CUDA tensors
+    # (NCCL refuses two ranks on one device).
+    secs = {}
+    for world in (1, 2):
+        res = ranks.run([(ranks.write_stream, [(corpus, opts, 2)] * world)],
+                        world, backend="gloo", devices=[str(dev)] * world,
+                        timeout=600)[0]
+        if any(got != emit_stream for got, _ in res):
+            raise AssertionError(f"the {world}-rank gloo mesh stream differs "
+                                 f"from the device_emit stream")
+        secs[world] = res[0][1]
+    mb = len(corpus) / MB
+    log(f"time mesh Writer(mesh=), {len(corpus) // MB} MiB, 1 MiB blocks: "
+        f"1 NCCL rank {nccl_1 * 1e3 / mb:.4f} ms/MB; gloo on one card: "
+        f"1 rank {secs[1] * 1e3 / mb:.4f} ms/MB, 2 ranks "
+        f"{secs[2] * 1e3 / mb:.4f} ms/MB (world 2 / world 1 = "
+        f"{secs[2] / secs[1]:.3f}); every rank's stream == device_emit  "
+        f"[{card}]")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dryrun_multichip(torch.cuda.device_count(), backend="nccl",
+                         device="cuda")
+    for line in buf.getvalue().splitlines():
+        log(f"dryrun_multichip({torch.cuda.device_count()}): {line}")
+    return launches
+
+
+PLANTED = (b"MINLZ-PLANTED-PATTERN-ONE", b"straddle-the-block-boundary!",
+           b"MINLZ-PLANTED-PATTERN-TWO")
+ABSENT = b"\x01\x02never-in-the-corpus\xfe\xfd"
+SWEEP_BITS = (8, 16, 23)
+
+
+def search_path(corpus, dev, card):
+    """The search path: the corpus, with patterns planted (one across a
+    block boundary), through Writer(device=..., search_table=
+    SearchTableConfig()) (match_len 6, compressed tables, built on the
+    card) and back through Reader(device=...).  Every block's table equals
+    the NumPy builder's; on one block every match length at bits 8, 16 and
+    23 does; BlockSearcher finds every planted pattern and skips blocks for
+    an absent one.  Returns the launch counts of the Writer/Reader run."""
+    from minlz_tpu_torch import _build
+    from minlz_tpu_torch.search import BlockSearcher, SearchTableConfig
+    from minlz_tpu_torch.search.build import (build_table, build_table_auto,
+                                              build_tables_device)
+    from minlz_tpu_torch.stream import Reader, Writer
+
+    data = bytearray(corpus)
+    n = len(data) // MB
+    for at, pat in zip((MB + 1000, (n // 2) * MB - 11, len(data) - 5000),
+                       PLANTED):
+        data[at:at + len(pat)] = pat
+    data = bytes(data)
+    cfg = SearchTableConfig()
+
+    def write(search):
+        buf = io.BytesIO()
+        with Writer(buf, device=dev, level=LEVEL, block_size=MB,
+                    search_table=cfg if search else None) as w:
+            w.write(data)
+        torch.cuda.synchronize()
+        return buf.getvalue()
+
+    _build.reset_launches()
+    stream = write(True)
+    r = Reader(io.BytesIO(stream), device=dev)
+    back = r.readall()
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    if back != data or r.codec.blocks_decoded != n:
+        raise AssertionError("the search stream did not round-trip on the "
+                             "device")
+    chunks = {0x45: 0, 0x46: 0}
+    pos = 10
+    while pos < len(stream):
+        kind = stream[pos]
+        chunks[kind] = chunks.get(kind, 0) + 1
+        pos += 4 + int.from_bytes(stream[pos + 1:pos + 4], "little")
+    if chunks[0x45] + chunks[0x46] != n:
+        raise AssertionError(f"{chunks} table chunks for {n} blocks")
+
+    # Every block's table, built on the card as the Writer builds it (the
+    # next block's first bytes as overlap), against the NumPy builder.
+    m = cfg.match_len
+    for i in range(n):
+        block = data[i * MB:(i + 1) * MB]
+        overlap = data[(i + 1) * MB:(i + 1) * MB + m - 1]
+        if build_table_auto(block, cfg, overlap, MB, dev) != build_table(
+                block, cfg, overlap, MB):
+            raise AssertionError(f"block {i}: the card's table differs")
+    block = np.frombuffer(data[:MB], np.uint8)
+    for ml in range(1, 9):
+        for bits in SWEEP_BITS:
+            plain = SearchTableConfig(match_len=ml, table_bits=bits)
+            plain.max_population = 1.0
+            plain.max_reduced_population = 0.0
+            want, _ = build_table(data[:MB], plain, b"", MB)
+            got = build_tables_device(block[None, :], ml, bits, dev)
+            if got[0].cpu().numpy().tobytes() != want:
+                raise AssertionError(f"bitmap differs at match_len {ml}, "
+                                     f"bits {bits}")
+    for pat in PLANTED:
+        want = _find_all(data, pat)
+        got = [x.offset for x in BlockSearcher(io.BytesIO(stream),
+                                               pat).search()]
+        if got != want or not got:
+            raise AssertionError(f"{pat!r}: found at {got}, want {want}")
+    s = BlockSearcher(io.BytesIO(stream), ABSENT)
+    if s.search() or s.stats.blocks_skipped == 0 \
+            or s.stats.blocks_decoded >= s.stats.blocks_total:
+        raise AssertionError(f"absent pattern: {vars(s.stats)}")
+    log(f"main path (search): {n} MiB -> {len(stream)} bytes, {n} tables "
+        f"({chunks[0x46]} compressed 0x46, {chunks[0x45]} plain 0x45) built "
+        f"on the card == NumPy builder for every block; bitmaps == NumPy "
+        f"for match_len 1-8 at bits {SWEEP_BITS} on a 1 MiB block; "
+        f"{len(PLANTED)} planted patterns found; an absent pattern skipped "
+        f"{s.stats.blocks_skipped} of {s.stats.blocks_total} blocks "
+        f"undecoded; launches {launches}")
+
+    row = torch.from_numpy(block[None, :].copy()).to(dev)
+    bits = cfg.auto_bits(MB)
+    build_ms = cuda_ms(lambda: build_tables_device(row, m, bits, dev))
+    with_ms = host_ms(lambda: write(True), repeats=2)
+    without_ms = host_ms(lambda: write(False), repeats=2)
+    log(f"time search table build_tables_device on the card, 1 MiB block, "
+        f"match_len {m}, bits {bits}: {build_ms:.4f} ms/MB; "
+        f"Writer(device=\"cuda\") {n} MiB with search tables "
+        f"{with_ms / n:.4f} ms/MB, without {without_ms / n:.4f} ms/MB  "
+        f"[{card}]")
+    return launches
+
+
+def _find_all(data, pattern):
+    out, start = [], 0
+    while (j := data.find(pattern, start)) >= 0:
+        out.append(j)
+        start = j + 1
+    return out
+
+
 
 def main():
     # ---- 1. card and versions -------------------------------------------
@@ -1045,16 +1252,16 @@ def main():
                              8 * g_off.numel() + 8 * n_tokens)
 
     # ---- 6. main paths: Writer -> Reader on the card ---------------------
-    path_launches, stream_len = {}, {}
-    path_launches["serializer"], stream_len["serializer"] = round_trip(
+    path_launches, streams = {}, {}
+    path_launches["serializer"], streams["serializer"] = round_trip(
         "serializer", corpus, dev)
-    path_launches["device_emit"], stream_len["device_emit"] = round_trip(
+    path_launches["device_emit"], streams["device_emit"] = round_trip(
         "device_emit", corpus, dev, device_emit=True)
-    path_launches["unclamped"], stream_len["unclamped"] = round_trip(
+    path_launches["unclamped"], streams["unclamped"] = round_trip(
         "unclamped", corpus, dev, clamp=False)
     log(f"ratio without the range clamp "
-        f"{stream_len['unclamped'] / len(corpus):.4f}, with it "
-        f"{stream_len['serializer'] / len(corpus):.4f}")
+        f"{len(streams['unclamped']) / len(corpus):.4f}, with it "
+        f"{len(streams['serializer']) / len(corpus):.4f}")
 
     # The clamped stream's blocks (encode_batch is what the Writer calls)
     # through the append-only road.
@@ -1083,10 +1290,22 @@ def main():
         f"launches {path_launches['scheduled']}")
     del back, sched_items
 
+    # ---- 6a. the mesh and search paths -------------------------------------
+    path_launches["mesh"] = mesh_path(corpus, dev, card,
+                                      streams["device_emit"])
+    path_launches["search"] = search_path(corpus, dev, card)
+    del streams
+
     for name, (_, _, count, path) in KERNELS.items():
         if path != "probes" and path_launches[path][count] <= 0:
             raise AssertionError(f"kernel {name} never ran on the {path} "
                                  f"path")
+    for path, counts in (("mesh", ("greedy", "parse")),
+                         ("search", ("parse", "compact", "exec_range"))):
+        for count in counts:
+            if path_launches[path][count] <= 0:
+                raise AssertionError(
+                    f"kernel {count} never ran on the {path} path")
     for path in ("serializer", "device_emit"):
         for count in ("parse", "compact", "exec_range"):
             if path_launches[path][count] <= 0:

@@ -32,10 +32,6 @@ WINDOW = 16384
 # Largest decoded block the device path takes (the format's block limit).
 MAX_BLOCK = 8 << 20
 
-_TODO_MESH = ("the device mesh is not ported yet: ROADMAP.md, 'Next, in "
-              "order', item 2 (mesh via torch.distributed)")
-
-
 def marshal_hints(seg_size: int, hints, rng: int = 0) -> bytes:
     """hints: list of (comp_offset, out_offset); out offsets are implied by
     the fixed segment size, so only comp offsets go on the wire."""
@@ -152,25 +148,68 @@ class DeviceCodec:
         """Encode many blocks wholly on the device, in one pass over a
         [B, N] batch padded to one window-sized geometry.  Returns a list
         of (block, hint_payload) | None entries, aligned with the input."""
-        import numpy as np
         import torch
 
         from . import emit
 
+        seg, arr, ns = self._emit_batch(blocks)
+        out, lens = emit.encode_block_emit(
+            torch.from_numpy(arr).to(self.device), ns, seg, RANGE, level)
+        self.blocks_encoded += len(blocks)
+        return self._emit_results(blocks, seg, out, lens)
+
+    def encode_batch_mesh(self, mesh, blocks, level: int = 2):
+        """Data-parallel ``encode_batch_emit`` over a ``parallel.Mesh``.
+        Every rank calls it with the same blocks.  The batch is padded to a
+        multiple of the mesh size, each rank encodes its contiguous share
+        (``parallel.sharded_encode_blocks``: match find -> parse -> verify
+        -> emit, with the collective size scan), then the segment lengths
+        and the segment bytes, padded to the longest segment, are
+        all-gathered.  Returns the whole batch's (block, hint_payload) |
+        None entries on every rank, in submission order."""
+        import torch
+
+        from ..parallel.mesh import all_gather, sharded_encode_blocks
+
+        if mesh.device != self.device:
+            raise ValueError(f"mesh device {mesh.device} is not the "
+                             f"codec's {self.device}")
+        seg, arr, ns = self._emit_batch(blocks, mesh.size)
+        local = arr.shape[0] // mesh.size
+        mine = slice(mesh.rank * local, (mesh.rank + 1) * local)
+        out, lens, _, _ = sharded_encode_blocks(
+            mesh, torch.from_numpy(arr[mine]), ns[mine], seg, RANGE, level)
+        all_lens = all_gather(mesh, lens)
+        longest = max(int(all_lens.max()), 1)
+        all_out = all_gather(mesh, out[:, :, :longest])
+        self.blocks_encoded += len(blocks[mine])
+        return self._emit_results(blocks, seg, all_out, all_lens)
+
+    def _emit_batch(self, blocks, multiple: int = 1):
+        """(seg, [B, N] uint8 batch, [B] lengths) for the emit path: one
+        window-sized geometry, B padded to a multiple of ``multiple`` with
+        empty blocks.  Emission needs at least one byte per block."""
+        import numpy as np
+
         seg = self._seg_for(max(len(b) for b in blocks))
         N = -(-max(max(len(b) for b in blocks), 1) // seg) * seg
         N = -(-N // (2 * WINDOW)) * (2 * WINDOW)
-        arr = np.zeros((len(blocks), N), np.uint8)
+        B = -(-len(blocks) // multiple) * multiple
+        arr = np.zeros((B, N), np.uint8)
+        ns = np.ones(B, np.int32)
         for i, b in enumerate(blocks):
             arr[i, : len(b)] = np.frombuffer(bytes(b), np.uint8)
-        # Emission needs at least one byte per block.
-        ns = [max(len(b), 1) for b in blocks]
-        out, lens = emit.encode_block_emit(
-            torch.from_numpy(arr).to(self.device), ns, seg, RANGE, level)
+            ns[i] = max(len(b), 1)
+        return seg, arr, ns
+
+    @staticmethod
+    def _emit_results(blocks, seg, out, lens):
+        """Frame each block's emitted segments: (block, hint_payload), or
+        None when the block is empty or does not compress."""
+        import numpy as np
+
         out = out.cpu().numpy()
         lens = lens.cpu().numpy()
-        self.blocks_encoded += len(blocks)
-
         results = []
         for i, b in enumerate(blocks):
             n = len(b)
@@ -185,9 +224,6 @@ class DeviceCodec:
             block = b"\x00" + put_uvarint(n) + body
             results.append((block, marshal_hints(seg, hints, RANGE)))
         return results
-
-    def encode_batch_mesh(self, mesh, blocks, level: int = 2):
-        raise NotImplementedError(_TODO_MESH)
 
     @staticmethod
     def _chained_ok(seg_size: int, rng: int, decoded_len: int) -> bool:

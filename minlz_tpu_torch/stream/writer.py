@@ -33,17 +33,6 @@ from ..minlz import (
 )
 from .index import Index
 
-_TODO_SEARCH = ("search tables are not ported yet: ROADMAP.md, 'Next, in "
-                "order', item 4 (the remaining host modules: search/)")
-
-
-def _build_table_auto(data, cfg, overlap, block_size):
-    """Stands where the search-table construction of ``search/build.py`` will
-    be once that module is ported; ``Writer`` refuses a ``search_table``
-    until then."""
-    raise NotImplementedError(_TODO_SEARCH)
-
-
 def _block_size_log(block_size: int) -> int:
     log = block_size.bit_length() - 1
     if 1 << log != block_size:
@@ -72,6 +61,15 @@ class Writer:
                        encodes on the host without parse hints.
       device_emit    — serialize the tokens on the device too
                        (DeviceCodec.encode_batch_emit): no host serializer.
+      mesh           — a ``parallel.Mesh``: every rank runs the same Writer
+                       over the same bytes, each encodes its share of a
+                       batch on the device (DeviceCodec.encode_batch_mesh),
+                       and every rank writes the same stream.  Needs a
+                       device, the mesh's own.
+      search_table   — a ``search.SearchTableConfig``: a search table chunk
+                       before every block, built by
+                       ``search.build.build_table_auto`` on the Writer's
+                       device (on the CPU when ``device`` is None).
     """
 
     def __init__(
@@ -99,11 +97,7 @@ class Writer:
         if not MIN_BLOCK_SIZE <= block_size <= MAX_BLOCK_SIZE:
             raise ValueError(f"block_size {block_size} out of range 4KiB..8MiB")
         if search_table is not None:
-            raise NotImplementedError(_TODO_SEARCH)
-        if mesh is not None:
-            from ..ops.device_codec import _TODO_MESH
-
-            raise NotImplementedError(_TODO_MESH)
+            search_table.validate()
         if device is not None and block_size == DEFAULT_BLOCK_SIZE:
             # Device-friendly geometry: 1MiB blocks decode whole in one
             # dispatch; explicit block_size choices are honored as-is.
@@ -124,6 +118,12 @@ class Writer:
         # encode_emit) — no host serializer in the loop, at a cost in
         # ratio (no short repeats); for host-CPU-free pipelines.
         self._device_emit = device_emit
+        # mesh: block batches are sharded data-parallel over its ranks
+        # (parallel/mesh.py collective pipeline; the reference Writer's
+        # goroutine concurrency, writer.go:214-272, as a device mesh).
+        # Implies device emission.
+        if mesh is not None and device is None:
+            raise ValueError("mesh= requires a device")
         self._mesh = mesh
         self._parse_hints = (
             device is not None if parse_hints is None else parse_hints
@@ -146,6 +146,9 @@ class Writer:
             from ..ops.device_codec import DeviceCodec
 
             self._device_codec = DeviceCodec(device)
+            if mesh is not None and mesh.device != self._device_codec.device:
+                raise ValueError(f"device {self._device_codec.device} is not "
+                                 f"the mesh's {mesh.device}")
         else:
             self._device_codec = None
         # Device blocks are encoded in batches of this many per dispatch
@@ -389,8 +392,12 @@ class Writer:
                            with_table: bool = True):
         table_chunk = None
         if with_table:
-            res = _build_table_auto(
-                data, self._search_cfg, overlap, self._block_size
+            from ..search.build import build_table_auto
+
+            codec = self._device_codec
+            res = build_table_auto(
+                data, self._search_cfg, overlap, self._block_size,
+                codec.device if codec is not None else "cpu",
             )
             if res is not None:
                 table, reductions = res

@@ -556,3 +556,87 @@ def test_sched_kernel_on_backward_ranges():
     torch.cuda.synchronize()
     want = tec.execute_scheduled_plain(torch.from_numpy(drec), *args)
     assert torch.equal(out.cpu(), want)
+
+
+# --- search tables built on the card, and the mesh over NCCL -----------------
+
+
+def _need_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+
+
+@pytest.mark.parametrize("match_len", range(1, 9))
+def test_build_tables_device_on_card_matches_numpy(twain, match_len):
+    """The torch table builder on the card against the NumPy builder (no
+    reduction, no population limit) at bits 8, 16 and 23."""
+    _need_gpu()
+    from minlz_tpu_torch.search import SearchTableConfig
+    from minlz_tpu_torch.search.build import build_table, build_tables_device
+
+    rng = np.random.default_rng(match_len)
+    rows = [(twain * 5)[: 64 << 10],
+            rng.integers(0, 256, 64 << 10, dtype=np.uint8).tobytes()]
+    blocks = np.stack([np.frombuffer(r, np.uint8) for r in rows])
+    for bits in (8, 16, 23):
+        got = build_tables_device(blocks, match_len, bits, "cuda")
+        assert got.device.type == "cuda"
+        cpu = build_tables_device(blocks, match_len, bits, "cpu")
+        assert torch.equal(got.cpu(), cpu)
+        for i, row in enumerate(rows):
+            cfg = SearchTableConfig(match_len=match_len, table_bits=bits)
+            cfg.max_population = 1.0
+            cfg.max_reduced_population = 0.0
+            table, red = build_table(row, cfg, b"", len(row))
+            assert red == 0 and got[i].cpu().numpy().tobytes() == table
+
+
+def _mesh_inputs(twain):
+    n, nb = 32768, 4
+    rng = np.random.default_rng(3)
+    blocks = np.zeros((nb, n), np.uint8)
+    for b in range(nb):
+        d = bytearray((twain[b * 977:] + twain * 3)[:n])
+        for _ in range(16):
+            d[int(rng.integers(0, n))] = int(rng.integers(32, 127))
+        blocks[b] = np.frombuffer(bytes(d), np.uint8)
+    return blocks, np.full(nb, n, np.int32)
+
+
+def test_one_rank_nccl_encode_matches_cpu(twain):
+    _need_gpu()
+    from functools import partial
+
+    from minlz_tpu_torch.ops import emit
+    from minlz_tpu_torch.parallel import ranks, sharded_encode_blocks
+
+    blocks, valid = _mesh_inputs(twain)
+    res = ranks.run([(partial(sharded_encode_blocks, seg=4096),
+                      [(blocks, valid)])], 1, backend="nccl",
+                    devices="cuda", timeout=300)[0][0]
+    out, lens = emit.encode_block_emit(torch.from_numpy(blocks), valid, 4096)
+    np.testing.assert_array_equal(res[0], out.numpy())
+    np.testing.assert_array_equal(res[1], lens.numpy())
+    sizes = lens.sum(dim=1).numpy()
+    np.testing.assert_array_equal(res[3], np.cumsum(sizes) - sizes)
+
+
+def test_mesh_writer_on_card(twain):
+    """Writer(mesh=) on one NCCL rank writes the bytes of the port's
+    Writer(device_emit=True) on the card, and reads back bit-exact."""
+    _need_gpu()
+    import io
+
+    from minlz_tpu_torch.parallel import ranks
+    from minlz_tpu_torch.stream import Reader, Writer
+
+    payload = (twain * 19)[: 256 << 10]  # four 64 KiB blocks
+    opts = dict(block_size=64 << 10, add_index=False, concurrency=1)
+    stream, _ = ranks.run([(ranks.write_stream, [(payload, opts)])], 1,
+                          backend="nccl", devices="cuda", timeout=300)[0][0]
+    buf = io.BytesIO()
+    with Writer(buf, device="cuda", device_emit=True, **opts) as w:
+        w.write(payload)
+    assert stream == buf.getvalue()
+    r = Reader(io.BytesIO(stream), device="cuda")
+    assert r.readall() == payload and r.codec.blocks_decoded == 4

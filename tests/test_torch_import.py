@@ -46,7 +46,13 @@ for wanted in ("minlz_tpu_torch.stream.writer", "minlz_tpu_torch.ops.emit",
                "minlz_tpu_torch.scripts.probe_v2",
                "minlz_tpu_torch.scripts.rec_stats",
                "minlz_tpu_torch.scripts.enc_probe",
-               "minlz_tpu_torch.scripts.emit_probe"):
+               "minlz_tpu_torch.scripts.emit_probe",
+               "minlz_tpu_torch.parallel", "minlz_tpu_torch.parallel.mesh",
+               "minlz_tpu_torch.parallel.ranks", "minlz_tpu_torch.search",
+               "minlz_tpu_torch.search.build",
+               "minlz_tpu_torch.search.searcher",
+               "minlz_tpu_torch.search.sidecar", "minlz_tpu_torch.dict",
+               "minlz_tpu_torch.utils.huff0"):
     assert wanted in names, wanted
 print("clean", len(names))
 """

@@ -127,14 +127,28 @@ def test_corrupt_hints_decode_on_the_host(port_stream, corpus, monkeypatch):
         == corpus[:10]
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Writer(io.BytesIO(), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Writer(io.BytesIO(), device="cpu", search_table=object())
-    dc = tdc.DeviceCodec("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dc.encode_batch_mesh(None, [b"x"])
+@pytest.mark.parametrize("case", ["mesh_without_device", "mesh_elsewhere",
+                                  "codec_elsewhere", "bad_search_table"])
+def test_unported_options_raise(case):
+    """The argument checks that stand where the mesh and search options
+    were refused: a mesh needs a device, the mesh's own, and a search table
+    config must be valid."""
+    import torch
+
+    from minlz_tpu_torch.parallel.mesh import Mesh
+    from minlz_tpu_torch.search import SearchTableConfig
+
+    elsewhere = Mesh(None, 0, 1, torch.device("meta"))
+    with pytest.raises(ValueError):
+        if case == "mesh_without_device":
+            Writer(io.BytesIO(), device=None, mesh=elsewhere)
+        elif case == "mesh_elsewhere":
+            Writer(io.BytesIO(), device="cpu", mesh=elsewhere)
+        elif case == "codec_elsewhere":
+            tdc.DeviceCodec("cpu").encode_batch_mesh(elsewhere, [b"x"])
+        else:
+            Writer(io.BytesIO(), device="cpu",
+                   search_table=SearchTableConfig(table_bits=30))
 
 
 def test_host_only_reader_and_writer(corpus):
