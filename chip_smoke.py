@@ -49,6 +49,18 @@ jax or of the JAX package.  Prints a JSON line of kernel results, then, as
 its last line, {"ok": true, "device": {...}}.  Any failure raises and exits
 non-zero.
 
+The cli path runs last, after every other time: the mz command line
+(minlz_tpu_torch.cli.main) in this process on the card, its default route.
+`c -2` (with -device and without) writes the Writer's stream byte for byte,
+`d` decodes it exactly with every block on the card, `d -offset` decodes
+its range on the card, `bench -device` prints its line ("time cli" lines:
+the CLI's own rate and the main call's, file to file), `c -device -search`
+and `s -c` find each planted pattern, `c` and `d` on the host route
+(main(argv, device=None)) build no DeviceCodec, and `--traceprof D d
+-device` decodes with K1, K2 and K3 in its trace and prints the device's
+idle share.  The device-resident decode lines are then timed again ("time
+after the cli path").
+
     python3 chip_smoke.py
 """
 
@@ -820,6 +832,16 @@ ABSENT = b"\x01\x02never-in-the-corpus\xfe\xfd"
 SWEEP_BITS = (8, 16, 23)
 
 
+def planted(corpus):
+    """The corpus with PLANTED written in, one across a block boundary."""
+    data = bytearray(corpus)
+    n = len(data) // MB
+    for at, pat in zip((MB + 1000, (n // 2) * MB - 11, len(data) - 5000),
+                       PLANTED):
+        data[at:at + len(pat)] = pat
+    return bytes(data)
+
+
 def search_path(corpus, dev, card):
     """The search path: the corpus, with patterns planted (one across a
     block boundary), through Writer(device=..., search_table=
@@ -834,12 +856,8 @@ def search_path(corpus, dev, card):
                                               build_tables_device)
     from minlz_tpu_torch.stream import Reader, Writer
 
-    data = bytearray(corpus)
+    data = planted(corpus)
     n = len(data) // MB
-    for at, pat in zip((MB + 1000, (n // 2) * MB - 11, len(data) - 5000),
-                       PLANTED):
-        data[at:at + len(pat)] = pat
-    data = bytes(data)
     cfg = SearchTableConfig()
 
     def write(search):
@@ -916,6 +934,184 @@ def search_path(corpus, dev, card):
         f"Writer(device=\"cuda\") {n} MiB with search tables "
         f"{with_ms / n:.4f} ms/MB, without {without_ms / n:.4f} ms/MB  "
         f"[{card}]")
+    return launches
+
+
+# The decode kernels of `mz d -device` (their launch counts' names) and the
+# functions' own names in a trace.
+CLI_KERNELS = {"parse": "parse_kernel", "compact": "compact_kernel",
+               "exec_range": "exec_range_kernel"}
+
+
+def kernel_base(name):
+    """The function's own name in a trace's kernel name, e.g. "parse_kernel"
+    in "(anonymous namespace)::parse_kernel(unsigned char const*, ...)"."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("<")[0].rsplit("::", 1)[-1]
+
+
+def cli_path(corpus, dev, card):
+    """The cli path: the mz command line (minlz_tpu_torch.cli.main) run in
+    this process on the card over the corpus in a file.  `c -2` and
+    `c -2 -device` write the stream of Writer(device=...) with the CLI's
+    defaults; `d` and `d -device` decode it exactly, every block on the card;
+    `d -offset` decodes the blocks it touches on the card; `bench -device -n
+    3` prints its line; `c -device -search` then `s -c` finds each planted
+    pattern as often as bytes.count does; `c` and `d` on the host route
+    (main(argv, device=None)) build no DeviceCodec.  Last, because the
+    profiler stays in the process, `--traceprof D d -device`: its trace holds
+    K1, K2 and K3, a launch each for every batch of 8 blocks, and gives the
+    device's busy time and idle share.  Each rate is printed twice: the
+    CLI's own (the codec alone, without reading the input and writing the
+    output) and the whole main call, file to file.  Returns the launch
+    counts of the run."""
+    import re
+    import tempfile
+
+    from minlz_tpu_torch import _build, cli
+    from minlz_tpu_torch._device import resolve_device
+    from minlz_tpu_torch.bench import trace_share
+    from minlz_tpu_torch.ops.device_codec import DeviceCodec
+    from minlz_tpu_torch.stream import Writer
+
+    def mz(argv, device=dev):
+        """mz argv: its stdout, its stderr and the seconds of the call."""
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(argv, device=device)
+        if device is not None:
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"mz {argv} returned {rc}: {err.getvalue()}")
+        return out.getvalue(), err.getvalue(), dt
+
+    def rate(line):
+        return float(re.search(r"([\d.]+) MB/s", line).group(1))
+
+    def read(path):
+        with open(path, "rb") as fh:
+            return fh.read()
+
+    t_path = time.perf_counter()
+    n = len(corpus) // MB
+    batches = -(-n // BATCH_BLOCKS)
+    buf = io.BytesIO()
+    with Writer(buf, device=dev, level=LEVEL, add_index=True,
+                padding=0) as w:
+        w.encode_buffer(corpus)
+    want = buf.getvalue()
+    rates = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as d:
+        src, mzf = os.path.join(d, "corpus"), os.path.join(d, "corpus.mz")
+        out_f = src + ".out"
+        with open(src, "wb") as fh:
+            fh.write(corpus)
+        _build.reset_launches()
+        for flag in (["-device"], []):
+            out, _, dt = mz(["c", "-2"] + flag + [src, "-o", mzf])
+            if read(mzf) != want:
+                raise AssertionError(f"mz c {flag} differs from the Writer's "
+                                     f"stream")
+            rates["c" + " -device" * bool(flag)] = (rate(out), n / dt)
+        for flag in (["-device"], []):
+            _, err, dt = mz(["d"] + flag + [mzf, "-o", out_f])
+            if read(out_f) != corpus:
+                raise AssertionError(f"mz d {flag} did not decode the corpus")
+            if f", {n} blocks on {resolve_device(dev)})" not in err:
+                raise AssertionError(f"mz d {flag}: not every block on the "
+                                     f"card: {err.strip()}")
+            rates["d" + " -device" * bool(flag)] = (rate(err), n / dt)
+        start = n // 2 * MB + 12345
+        before = _build.launch_counts()["exec_range"]
+        mz(["d", "-offset", str(start), "-limit", str(2 * MB), mzf, "-o",
+            out_f])
+        if read(out_f) != corpus[start:start + 2 * MB]:
+            raise AssertionError("mz d -offset did not decode its range")
+        seek_launches = _build.launch_counts()["exec_range"] - before
+        if seek_launches != 3:
+            raise AssertionError(f"mz d -offset: {seek_launches} blocks on "
+                                 f"the card, want 3")
+        bench_out, _, _ = mz(["bench", "-device", "-n", "3", src])
+
+        data = planted(corpus)
+        src_s, mz_s = os.path.join(d, "planted"), os.path.join(d, "planted.mz")
+        with open(src_s, "wb") as fh:
+            fh.write(data)
+        mz(["c", "-device", "-search", src_s, "-o", mz_s])
+        for pat in PLANTED:
+            out, _, _ = mz(["s", "-c", pat.decode(), mz_s])
+            got = int(out.strip().rsplit(" ", 1)[-1])
+            if got != data.count(pat) or got == 0:
+                raise AssertionError(f"mz s -c {pat!r}: {got}, want "
+                                     f"{data.count(pat)}")
+
+        built, real_init = [], DeviceCodec.__init__
+
+        def counted(self, *args, **kwargs):
+            built.append(args)
+            real_init(self, *args, **kwargs)
+
+        DeviceCodec.__init__ = counted
+        try:
+            mz(["c", "-2", src, "-o", mzf + ".host"], device=None)
+            mz(["d", mzf + ".host", "-o", src + ".host"], device=None)
+            host_built = len(built)
+            mz(["d", mzf + ".host", "-o", src + ".host"])
+        finally:
+            DeviceCodec.__init__ = real_init
+        if host_built != 0 or len(built) != 1:
+            raise AssertionError(f"{host_built} DeviceCodec built by mz c "
+                                 f"and mz d on the host route, {len(built)} "
+                                 f"with the card route's d after them")
+        if read(src + ".host") != corpus:
+            raise AssertionError("mz c / mz d on the host did not round-trip")
+
+        prof = os.path.join(d, "prof")
+        before = _build.launch_counts()
+        _, err, dt = mz(["--traceprof", prof, "d", "-device", mzf, "-o",
+                         out_f])
+        after = _build.launch_counts()
+        if read(out_f) != corpus:
+            raise AssertionError("mz d -device did not decode the corpus")
+        rates["d -device under --traceprof (file to file includes the "
+              "trace's export)"] = (rate(err), n / dt)
+        share = trace_share(os.path.join(prof, "mz_trace.json"), top=None)
+        in_trace = {}
+        for name, _, calls in share["kernels"]:
+            base = kernel_base(name)
+            in_trace[base] = in_trace.get(base, 0) + calls
+        for count, kname in CLI_KERNELS.items():
+            if after[count] - before[count] != batches \
+                    or in_trace.get(kname, 0) != batches:
+                raise AssertionError(
+                    f"mz d -device: {kname} launched "
+                    f"{after[count] - before[count]} times, "
+                    f"{in_trace.get(kname, 0)} in the trace; want {batches}")
+        launches = _build.launch_counts()
+    log(f"main path (cli): mz c -2 and mz c -2 -device == Writer(device=...) "
+        f"stream ({len(want)} bytes); mz d and mz d -device == corpus, {n} "
+        f"blocks on the card; mz d -offset: 3 blocks on the card; in the "
+        f"trace " + ", ".join(f"{k} x{in_trace[k]}"
+                               for k in CLI_KERNELS.values())
+        + f" ({batches} batches of {BATCH_BLOCKS} blocks)")
+    for label, (own, whole) in rates.items():
+        log(f"time cli mz {label}, {n} MiB: {own} MB/s as the CLI prints it "
+            f"(the codec alone), {whole * MB / 1e6:.1f} MB/s file to file "
+            f"(the main call)  [{card}]")
+    top = ", ".join(f"{kernel_base(k)} {t:.1f} us x{c}"
+                    for k, t, c in share["kernels"][:5])
+    log(f"time cli mz --traceprof d -device, {n} MiB: device busy "
+        f"{share['busy_us']:.1f} us of a {share['window_us']:.1f} us "
+        f"window, idle share {share['idle_share']:.4f}; longest: {top}  "
+        f"[{card}]")
+    log(f"time cli mz bench -device -n 3: "
+        f"{bench_out.strip().replace(src, 'corpus')}  [{card}]")
+    log(f"main path (cli): mz c -device -search, then mz s -c finds each of "
+        f"{len(PLANTED)} planted patterns as often as bytes.count; mz c and "
+        f"mz d on the host route built no DeviceCodec; launches {launches}; "
+        f"the path took {time.perf_counter() - t_path:.1f} s")
     return launches
 
 
@@ -1508,6 +1704,31 @@ def main():
         log(f"time {label}: {val:.4f} ms/MB  [{card}]")
     log(f"peak device memory, encode_block_emit on 16 x 1 MiB: "
         f"{emit_peak / (1 << 20):.0f} MiB  [{card}]")
+
+    # ---- 9. the cli path, after every other time ---------------------------
+    # Its --traceprof leaves torch.profiler's state in this process, so the
+    # device-resident decode lines are timed once more after it.
+    path_launches["cli"] = cli_path(corpus, dev, card)
+    for count in ("parse", "compact", "exec_range"):
+        if path_launches["cli"][count] <= 0:
+            raise AssertionError(f"kernel {count} never ran on the cli path")
+    for count in ("greedy", "exec_block", "exec_sched", "compact_dense"):
+        if path_launches["cli"][count] != 0:
+            raise AssertionError(f"the cli path launched {count}")
+    for label, fn, reps, before in (
+            ("decode 3 kernels, device-resident, 8 x 1 MiB",
+             lambda: run_stages(t, plan, False), REPEATS, dev_ms),
+            ("decode, append-only road, 3 kernels device-resident, "
+             "8 x 1 MiB", lambda: ec.decode_planned(plan, dev, "scheduled",
+                                                    tensors=t),
+             REPEATS, dev_s2_ms),
+            ("decode 3 kernels, whole-block road, device-resident, "
+             "8 x 1 MiB", lambda: run_stages(tw, plan_w, False), 3,
+             dev_w_ms)):
+        after = cuda_ms(fn, repeats=reps)
+        log(f"time after the cli path (torch.profiler has run) {label}: "
+            f"{after / BATCH_BLOCKS:.4f} ms/MB, before it "
+            f"{before / BATCH_BLOCKS:.4f} ms/MB  [{card}]")
     shapes = {"parse": "8 x 1 MiB batch, through parse_planned",
               "greedy": "16 x 1 MiB batch, greedy_parse as one call",
               "exec_block": "8 x 1 MiB batch without the clamp",

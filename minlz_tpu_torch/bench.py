@@ -140,25 +140,43 @@ def profiled(profile_dir, name: str, device):
     prof.export_chrome_trace(os.path.join(profile_dir, f"{name}_trace.json"))
 
 
-def device_share(prof, top: int = 5) -> dict:
+def device_share(prof, top: int | None = 5) -> dict:
     """What a finished profile says of the device: the traced window (first
     device activity to the last), the time some kernel or copy ran in it,
-    the idle share, and the ``top`` longest kernels by name.  Raises when the
-    profile holds no device activity."""
+    the idle share, and the ``top`` longest kernels by name (all of them
+    for None).  Raises when the profile holds no device activity."""
     from torch.autograd import DeviceType
 
-    spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        a, b = e.time_range.start, e.time_range.end
-        spans.append((a, b))
-        total, calls = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (total + (b - a), calls + 1)
+    return _share([(e.name, e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA],
+                  top)
+
+
+# The Chrome trace's categories of device activity: what
+# ``prof.events()`` lists on the CUDA device.
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def trace_share(path: str, top: int | None = 5) -> dict:
+    """``device_share`` of a Chrome trace that ``profiled`` wrote, from its
+    GPU kernel, copy and memset events."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return _share([(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("ph") == "X"
+                   and e.get("cat") in DEVICE_CATEGORIES], top)
+
+
+def _share(spans, top):
+    """spans: (name, start us, end us) of each device activity."""
     if not spans:
         raise RuntimeError("the profile holds no device activity: the "
                            "profiler cannot trace this device here")
-    spans.sort()
+    by_name = {}
+    for name, a, b in spans:
+        total, calls = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + (b - a), calls + 1)
+    spans = sorted((a, b) for _, a, b in spans)
     busy, (lo, hi) = 0.0, spans[0]
     for a, b in spans[1:]:
         if a > hi:

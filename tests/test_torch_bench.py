@@ -113,6 +113,33 @@ def test_profiled_writes_a_trace_and_finds_no_device_on_the_cpu(tmp_path):
         assert prof is None
 
 
+def test_trace_share_reads_a_chrome_trace(tmp_path):
+    """trace_share: the device's window, busy time and idle share from the
+    kernel and copy events of a Chrome trace; host events are not device
+    time; a trace without device events raises."""
+    import json
+
+    events = [
+        {"ph": "X", "cat": "kernel", "name": "k1", "ts": 0, "dur": 10},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD", "ts": 5,
+         "dur": 10},
+        {"ph": "X", "cat": "kernel", "name": "k1", "ts": 30, "dur": 10},
+        {"ph": "X", "cat": "cpu_op", "name": "aten::add", "ts": 0,
+         "dur": 100},
+        {"ph": "i", "cat": "kernel", "name": "marker", "ts": 90},
+    ]
+    path = tmp_path / "t_trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    share = tbench.trace_share(str(path), top=None)
+    assert share["window_us"] == 40 and share["busy_us"] == 25
+    assert share["idle_share"] == pytest.approx(0.375, abs=1e-12)
+    assert share["kernels"] == [("k1", 20, 2), ("Memcpy HtoD", 10, 1)]
+    assert tbench.trace_share(str(path), top=1)["kernels"] == [("k1", 20, 2)]
+    path.write_text(json.dumps({"traceEvents": events[3:]}))
+    with pytest.raises(RuntimeError):
+        tbench.trace_share(str(path))
+
+
 def test_scripts_refuse_a_missing_gpu():
     import torch
 

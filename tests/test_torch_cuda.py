@@ -640,3 +640,62 @@ def test_mesh_writer_on_card(twain):
     assert stream == buf.getvalue()
     r = Reader(io.BytesIO(stream), device="cuda")
     assert r.readall() == payload and r.codec.blocks_decoded == 4
+
+
+def test_cli_device_round_trip_on_card(tmp_path, monkeypatch):
+    """`mz c -device` then `mz d -device` on the card round-trip 8 MiB, and
+    every block goes through DeviceCodec.decode_batch on the card."""
+    _need_gpu()
+    from minlz_tpu_torch.cli import main
+    from minlz_tpu_torch.corpus import make_corpus
+    from minlz_tpu_torch.ops.device_codec import DeviceCodec
+
+    seen = []
+    real = DeviceCodec.decode_batch
+
+    def spy(self, items):
+        seen.append((self.device.type, len(items)))
+        return real(self, items)
+
+    monkeypatch.setattr(DeviceCodec, "decode_batch", spy)
+    data = make_corpus(8 << 20)
+    src, mz, out = tmp_path / "in", tmp_path / "in.mz", tmp_path / "out"
+    src.write_bytes(data)
+    assert main(["c", "-device", "-o", str(mz), str(src)],
+                device="cuda") == 0
+    assert main(["d", "-device", "-o", str(out), str(mz)],
+                device="cuda") == 0
+    assert out.read_bytes() == data
+    assert seen == [("cuda", 8)]
+
+
+def test_cli_card_is_the_default_route(tmp_path, monkeypatch):
+    """Without -device, `mz c` and `mz d` run on the card all the same, and
+    `mz d -offset` decodes the blocks it touches there one at a time
+    (DeviceCodec.decode is a batch of one)."""
+    _need_gpu()
+    from minlz_tpu_torch.cli import main
+    from minlz_tpu_torch.corpus import make_corpus
+    from minlz_tpu_torch.ops.device_codec import DeviceCodec
+
+    seen = []
+    real = DeviceCodec.decode_batch
+
+    def spy(self, items):
+        seen.append((self.device.type, len(items)))
+        return real(self, items)
+
+    monkeypatch.setattr(DeviceCodec, "decode_batch", spy)
+    data = make_corpus(8 << 20)
+    src, mz, out = tmp_path / "in", tmp_path / "in.mz", tmp_path / "out"
+    src.write_bytes(data)
+    assert main(["c", "-o", str(mz), str(src)]) == 0
+    assert main(["d", "-o", str(out), str(mz)]) == 0
+    assert out.read_bytes() == data
+    assert seen == [("cuda", 8)]
+    seen.clear()
+    start = (3 << 20) + 12345
+    assert main(["d", "-offset", str(start), "-limit", str(2 << 20), "-o",
+                 str(out), str(mz)]) == 0
+    assert out.read_bytes() == data[start:start + (2 << 20)]
+    assert seen == [("cuda", 1)] * 3

@@ -52,7 +52,9 @@ for wanted in ("minlz_tpu_torch.stream.writer", "minlz_tpu_torch.ops.emit",
                "minlz_tpu_torch.search.build",
                "minlz_tpu_torch.search.searcher",
                "minlz_tpu_torch.search.sidecar", "minlz_tpu_torch.dict",
-               "minlz_tpu_torch.utils.huff0"):
+               "minlz_tpu_torch.utils.huff0", "minlz_tpu_torch.cli",
+               "minlz_tpu_torch.lz4", "minlz_tpu_torch.utils.readahead",
+               "minlz_tpu_torch.utils.shttp"):
     assert wanted in names, wanted
 print("clean", len(names))
 """
@@ -72,6 +74,31 @@ def test_port_imports_no_jax():
     imported in a fresh interpreter, leave no jax, jaxlib, bench or
     minlz_tpu module behind."""
     res = _run(["-c", _WALK_AND_CHECK], ROOT)
+    assert res.returncode == 0, res.stderr
+    assert "clean" in res.stdout
+
+
+_TRACED_CLI = r"""
+import os, sys
+from minlz_tpu_torch.cli import main
+d = sys.argv[1]
+src = os.path.join(d, "in.txt")
+with open(src, "wb") as f:
+    f.write(b"the cli under torch.profiler " * 2000)
+assert main(["--traceprof", os.path.join(d, "prof"), "c", src],
+            device="cpu") == 0
+assert os.listdir(os.path.join(d, "prof"))
+foreign = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "minlz_tpu"))
+assert not foreign, foreign
+print("clean")
+"""
+
+
+def test_traced_cli_imports_no_jax(tmp_path):
+    """`mz --traceprof DIR c FILE` traces with torch.profiler and leaves no
+    jax, jaxlib or minlz_tpu module behind."""
+    res = _run(["-c", _TRACED_CLI, str(tmp_path)], ROOT)
     assert res.returncode == 0, res.stderr
     assert "clean" in res.stdout
 
@@ -238,3 +265,36 @@ def test_stream_index_copy_matches():
     back = TIndex.load(ji.marshal())
     assert back.find(3 << 20) == ji.find(3 << 20) == ti.find(3 << 20)
     assert back.to_json() == JIndex.load(ti.marshal()).to_json()
+
+
+def test_top_level_block_api_matches(twain):
+    """The package's top exports minlz_tpu's block API, constants, errors and
+    version, from the port's own modules, beside the four names of the
+    device codec."""
+    import minlz_tpu as jm
+    import minlz_tpu_torch as tm
+
+    assert set(jm.__all__) <= set(tm.__all__)
+    assert set(tm.__all__) - set(jm.__all__) == {
+        "DeviceCodec", "Reader", "Writer", "resolve_device"}
+    assert tm.__version__ == jm.__version__
+    for name in tm.__all__:
+        obj = getattr(tm, name)
+        if callable(obj):
+            assert obj.__module__.startswith("minlz_tpu_torch."), name
+        else:
+            assert obj == getattr(jm, name), name
+    data = twain[:30_000]
+    for level in (tm.LEVEL_SUPER_FAST, tm.LEVEL_FASTEST, tm.LEVEL_BALANCED,
+                  tm.LEVEL_SMALLEST):
+        enc = tm.encode(data, level)
+        assert enc == jm.encode(data, level)
+        assert tm.decode(enc) == data and tm.decoded_len(enc) == len(data)
+        assert tm.is_minlz(enc) and tm.append_decoded(b"x", enc) == b"x" + data
+        assert tm.append_encoded(b"y", data, level) == b"y" + enc
+        assert len(enc) <= tm.max_encoded_len(len(data))
+        assert tm.try_encode(data, level) == jm.try_encode(data, level)
+    with pytest.raises(tm.CorruptError):
+        tm.decode(enc[: len(enc) // 2])
+    assert issubclass(tm.TooLargeError, Exception)
+    assert issubclass(tm.UnsupportedError, Exception)
