@@ -33,21 +33,28 @@ version, through its wrapper and as a bare launch into an output filled
 with 0x7f7f7f7f, and timed ("time greedy" lines: alone and through
 greedy_parse, tokens a lane, registers and shared memory a block) on the
 encode batch's proposals, hostile int32, no candidate, every length 4 and
-one lane-long match; kernel 6 is timed alone beside its wrapper ("time
-compact_dense alone").  The mesh path writes the corpus through
-Writer(mesh=...) on one NCCL rank (this process) and reads it back on the
-card: its bytes are the device_emit stream's; the mesh encode is timed with
-its all-gathers' share, the same Writer runs on one and on two gloo ranks
-sharing the card ("time mesh" lines), and dryrun_multichip runs its five
-phases on every card over NCCL.  The search path writes the corpus, with
-patterns planted, through Writer(search_table=SearchTableConfig()) (tables
-built on the card by build_tables_device), reads it back, holds every
-block's table and a match_len/bits sweep of bitmaps against the NumPy
-builder, and searches it with BlockSearcher ("time search" line).  Then it
-times each phase.  It imports nothing of
-jax or of the JAX package.  Prints a JSON line of kernel results, then, as
-its last line, {"ok": true, "device": {...}}.  Any failure raises and exits
-non-zero.
+one lane-long match.  The compactions (kernels 2, 5 and 6, and the lane
+offset scan in front of them) are held against their plain versions (lane
+offsets, record total and the first total columns) on the corpus batch at
+range spans, at whole-block spans and dense, on the three made-up K1 batches
+and on the mutated pairs, and timed ("time compact" lines: through the
+wrapper, the kernel alone, the scan alone, and decode_planned
+device-resident on each road, beside the earlier design's figures).  A
+no-sync phase runs decode_planned (fast, scheduled) and decode_planned_whole
+from plan tensors on the card under torch.cuda.set_sync_debug_mode("error").
+The mesh path writes the corpus through Writer(mesh=...) on one NCCL rank
+(this process) and reads it back on the card: its bytes are the device_emit
+stream's; the mesh encode is timed with its all-gathers' share, the same
+Writer runs on one and on two gloo ranks sharing the card ("time mesh"
+lines), and dryrun_multichip runs its five phases on every card over NCCL.
+The search path writes the corpus, with patterns planted, through
+Writer(search_table=SearchTableConfig()) (tables built on the card by
+build_tables_device), reads it back, holds every block's table and a
+match_len/bits sweep of bitmaps against the NumPy builder, and searches it
+with BlockSearcher ("time search" line).  Then it times each phase.  It
+imports nothing of jax or of the JAX package.  Prints a JSON line of kernel
+results, then, as its last line, {"ok": true, "device": {...}}.  Any failure
+raises and exits non-zero.
 
 The cli path runs last, after every other time: the mz command line
 (minlz_tpu_torch.cli.main) in this process on the card, its default route.
@@ -57,9 +64,9 @@ its range on the card, `bench -device` prints its line ("time cli" lines:
 the CLI's own rate and the main call's, file to file), `c -device -search`
 and `s -c` find each planted pattern, `c` and `d` on the host route
 (main(argv, device=None)) build no DeviceCodec, and `--traceprof D d
--device` decodes with K1, K2 and K3 in its trace and prints the device's
-idle share.  The device-resident decode lines are then timed again ("time
-after the cli path").
+-device` decodes with K1, the lane offset scan, K2 and K3 in its trace and
+prints the device's idle share.  The device-resident decode lines are then
+timed again ("time after the cli path").
 
     python3 chip_smoke.py
 """
@@ -104,6 +111,16 @@ ABLATE_RECORDS, ABLATE_CHAINS, ABLATE_ROWS = 4096, (8, 16), 128
 # outside the tensor cores, taken as the rate of scalar int32 arithmetic.
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+# One SM of it, for the probes, which launch one thread block: at the
+# 1.98 GHz boost clock, 64 bytes a clock from L2 into the SM (every byte
+# of device memory reaches the SM that way; the rate is the L1's fill path
+# as on earlier NVIDIA SMs, not a published H100 figure, so the bound may
+# be low, never high), 128 bytes a clock of shared memory (32 banks of 4
+# bytes) and a 132nd of the card's scalar rate.
+SM_CLOCK_HZ = 1.98e9
+SMS = 132
+L2_BYTES_PER_SM_S = 64 * SM_CLOCK_HZ
+SHARED_BYTES_PER_SM_S = 128 * SM_CLOCK_HZ
 
 KERNELS = {
     # name: (source, the TPU kernel it replaces, its launch count's name in
@@ -112,6 +129,11 @@ KERNELS = {
               "minlz_tpu/ops/pallas_decode.py:56", "parse", "serializer"),
     "compact": ("minlz_tpu_torch/csrc/compact.cu",
                 "minlz_tpu/ops/exec_chain.py:394", "compact", "serializer"),
+    # The scan of the lane counts in front of both compactions, where the
+    # TPU package took a jnp.cumsum: no Pallas kernel of its own.
+    "lane_offsets": ("minlz_tpu_torch/csrc/compact.cu",
+                     "minlz_tpu/ops/exec_chain.py:1220", "lane_offsets",
+                     "serializer"),
     "exec_range": ("minlz_tpu_torch/csrc/exec_range.cu",
                    "minlz_tpu/ops/exec_chain.py:774", "exec_range",
                    "serializer"),
@@ -221,6 +243,17 @@ def bound(n_bytes: float, n_ops: float):
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
+def bound_one_sm(l2_bytes: float, n_ops: float, shared_bytes: float = 0):
+    """(bound_ms, bound_by) of a kernel that runs in one thread block: the
+    bytes it must move through one SM's L2 path and through its shared
+    memory, and its operations on one SM; the largest of the three times."""
+    by_bytes = max(l2_bytes / L2_BYTES_PER_SM_S,
+                   shared_bytes / SHARED_BYTES_PER_SM_S) * 1e3
+    by_ops = n_ops / (SCALAR_OPS_PER_S / SMS) * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
 def foreign_modules():
     return sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
 
@@ -256,9 +289,10 @@ def run_stages(t, plan, plain: bool):
     parse = ps.parse_segments_plain if plain else ps.parse_planned
     compact = ec.compact_records_plain if plain else ec.compact_records
     recs, counts = parse(t["comp"], t["lane_start"], t["lane_len"])
-    crec, lane_out = compact(recs, counts, t["lane_start"], t["lane_len"],
-                             t["lane_lo"], t["lane_hi"])
-    first = ec.range_firsts(lane_out, crec.shape[1], t["range_lane"])
+    crec, lane_out, total = compact(recs, counts, t["lane_start"],
+                                    t["lane_len"], t["lane_lo"],
+                                    t["lane_hi"])
+    first = ec.range_firsts(lane_out, total, t["range_lane"])
     args = (crec, first, t["range_out"], t["range_span"], t["comp"],
             plan.total_out)
     if plan.rng:
@@ -267,11 +301,37 @@ def run_stages(t, plan, plain: bool):
     else:
         execute = eb.execute_blocks_plain if plain else eb.execute_blocks
         out = execute(*args)
-    return recs, counts, crec, lane_out, first, out
+    return recs, counts, crec, lane_out, total, first, out
 
 
 STAGE_LABELS = ("parse records", "parse counts", "compacted records",
-                "lane offsets", "range offsets", "decoded bytes")
+                "lane offsets", "record total", "range offsets",
+                "decoded bytes")
+
+
+def require_records(label, kernel, plain) -> int:
+    """A compaction's (out, lane_out, total) against its plain version's:
+    the same capacity, lane offsets and total, and the same first total
+    columns (the kernel leaves those past the total unwritten).  Returns
+    the max abs err (0) and raises on any other."""
+    out, lane_out, total = kernel
+    out_p, lane_out_p, total_p = plain
+    if out.shape != out_p.shape:
+        raise AssertionError(f"{label}: capacity {tuple(out.shape)} != "
+                             f"{tuple(out_p.shape)}")
+    require_equal(f"{label}: lane offsets", lane_out, lane_out_p)
+    require_equal(f"{label}: record total", total, total_p)
+    n = int(total)
+    return require_equal(label, out[:, :n], out_p[:, :n])
+
+
+def require_stages(label, kern, plain):
+    """run_stages' outputs, kernels against plain versions."""
+    for i, (stage, k, p) in enumerate(zip(STAGE_LABELS, kern, plain)):
+        if i == 2:
+            require_records(f"{label}: {stage}", kern[2:5], plain[2:5])
+        elif i not in (3, 4):
+            require_equal(f"{label}: {stage}", k, p)
 
 
 def round_trip(label, corpus, dev, clamp=True, block_size=MB,
@@ -342,7 +402,8 @@ def compare_probes(dev, card):
 
     err, k_ms, plain_ms, bounds = {}, {}, {}, {}
 
-    def held(name, label, kernel_fn, plain_fn, timed, n_bytes, n_ops):
+    def held(name, label, kernel_fn, plain_fn, timed, n_bytes, n_ops,
+             shared_bytes=0):
         got = kernel_fn()
         torch.cuda.synchronize()
         want, p_ms = once_ms(plain_fn)
@@ -351,7 +412,8 @@ def compare_probes(dev, card):
         if timed:
             k_ms[name] = cuda_ms(kernel_fn)
             plain_ms[name] = p_ms
-            bounds[name] = bound(n_bytes, n_ops)
+            # One thread block: one SM's rates (bound_one_sm).
+            bounds[name] = bound_one_sm(n_bytes, n_ops, shared_bytes)
 
     for space, rows in PROBE_SPACES:
         for c in SCALAR_CHAINS:
@@ -385,11 +447,14 @@ def compare_probes(dev, card):
         f"the same, full size")
     for iters, vregs in GATHER_TABLES:
         tbl, idx = to_dev(probe.gather_inputs(iters, vregs, wrap=True))
+        # Table, indices and sums through L2; a 4-byte shared-memory read
+        # per gather.
         held("probe_gather", f"{vregs * 1024} words",
              lambda: probe.probe_gather(tbl, idx),
              lambda: probe.probe_gather_plain(tbl, idx),
              vregs == GATHER_TABLES[-1][1],
-             4 * (tbl.numel() + idx.numel() + 1024), 2 * idx.numel())
+             4 * (tbl.numel() + idx.numel() + 1024), 2 * idx.numel(),
+             4 * idx.numel())
     a, idx = to_dev(probe.taa_inputs(TAA_ITERS, wrap=True))
     # Four shuffles, three selects and an add per element.
     held("probe_taa", f"{TAA_ITERS} iterations",
@@ -456,7 +521,7 @@ def log_block_phases(label, args, card):
     if residual != info["residual"]:
         raise AssertionError(f"{label}: the tile phase left {residual} "
                              f"residual bytes, the model {info['residual']}")
-    log(f"time exec_block phases, {label}: {args[0].shape[1]} records, "
+    log(f"time exec_block phases, {label}: {int(args[1][-1])} records, "
         f"{both:.4f} ms = index + tile phase {tiles:.4f} + fix-up "
         f"{fix:.4f}; {residual} of {args[5]} bytes residual "
         f"({residual / max(args[5], 1):.2%}), longest walk {info['hops']} "
@@ -485,7 +550,7 @@ def log_range_rounds(label, args, card):
     ms_s = cuda_ms(lambda: ec.launch_execute(ec.EXEC_SCHED, s_args, RANGE,
                                              out_s, scratch))
     require_equal(f"exec_sched vs exec_range, {label}", out_s, out)
-    log(f"time K3 exec_range alone, {label}: {args[0].shape[1]} records, "
+    log(f"time K3 exec_range alone, {label}: {int(args[1][-1])} records, "
         f"{ms:.4f} ms, {info['rounds']} rounds in the deepest sub-tile "
         f"({info['round_sum']} over the 4 steps); exec_sched alone (cursor "
         f"scan + K3) {ms_s:.4f} ms  [{card}]")
@@ -574,6 +639,116 @@ def time_parse(label, args, card):
 
 GREEDY_CORPUS = f"the corpus, {ENCODE_BATCH} x 1 MiB"
 SENTINEL = 0x7F7F7F7F
+# The compactions of the earlier design (one thread block a lane, a shared
+# memory scan, the record total read back to the host before the launch):
+# ms a call through the wrapper and alone on the 8 x 1 MiB batch, and the
+# decode lines' ms/MB device-resident, on an H100 80GB HBM3 at 700 W
+# (PERF.md §5, §6).
+BEFORE = {"compact": (0.1435, 0.0259), "compact_whole": (0.2397, 0.0259),
+          "compact_dense": (0.1220, 0.0158), "fast": 0.0837,
+          "scheduled": 0.0876, "whole": 0.0913}
+
+
+def compact_args(kernel, recs, counts, t):
+    """(wrapper, its arguments) of a compaction kernel on plan tensors
+    ``t``: COMPACT takes the lane spans, COMPACT_DENSE does not."""
+    from minlz_tpu_torch.ops import exec_chain as ec
+
+    if kernel == ec.COMPACT:
+        return ec.compact_records, (recs, counts, t["lane_start"],
+                                    t["lane_len"], t["lane_lo"],
+                                    t["lane_hi"])
+    return ec.compact_records_dense, (recs, counts, t["lane_start"],
+                                      t["lane_len"])
+
+
+def time_compact(label, kernel, recs, counts, t, card, before=None):
+    """A "time compact" line: the compaction through its wrapper (the lane
+    offset scan, then the kernel, nothing read back), the bare kernel alone
+    and the bare offset scan alone, both queued behind a spin kernel, and
+    the wrapper's host time a call (host_us).  The
+    bare launch into an output filled with 0x7f7f7f7f must equal the
+    wrapper in the first total columns and leave every later column as it
+    was.  Returns (wrapper ms, kernel alone ms, scan alone ms)."""
+    from minlz_tpu_torch.ops import exec_chain as ec
+
+    wrap, args = compact_args(kernel, recs, counts, t)
+    out, lane_out, total = wrap(*args)
+    wrapper = cuda_ms(lambda: wrap(*args))
+    bare_args = [x.contiguous() for x in (args[0], *args[2:4], counts,
+                                          lane_out, *args[4:])]
+    bare = torch.full_like(out, SENTINEL)
+    alone = queued_ms(lambda: ec.launch_compact(kernel, bare_args, bare))
+    n = int(total)
+    require_equal(f"{label}, bare launch", bare[:, :n], out[:, :n])
+    if bool((bare[:, n:] != SENTINEL).any()):
+        raise AssertionError(f"{label}: the kernel wrote past the total")
+    off = torch.empty(counts.numel() + 1, dtype=torch.int64,
+                      device=counts.device)
+    scan = queued_ms(lambda: ec.launch_offsets(counts, off))
+    host = host_us(lambda: wrap(*args))
+    was = ("" if before is None else
+           f"; the earlier design {before[0]:.4f} through the wrapper, "
+           f"{before[1]:.4f} alone")
+    log(f"time compact {label}: {counts.numel()} lanes, {n} records in "
+        f"{out.shape[1]} slots; {wrap.__name__} {wrapper:.4f} ms, kernel "
+        f"alone {alone:.4f} ms, offset scan alone {scan:.4f} ms; the "
+        f"wrapper's host time {host:.1f} us a call{was}  [{card}]")
+    return wrapper, alone, scan
+
+
+def compare_compaction(label, segs, dev, card, err):
+    """Kernels 2, 5 and 6 against their plain versions (run on the card)
+    on K1's output for ``segs``, planned as blocks of 32 segments (one
+    128 KiB range each) at range spans, at whole-block spans and dense;
+    then their "time compact" lines."""
+    from minlz_tpu_torch.ops import exec_chain as ec
+    from minlz_tpu_torch.ops import parse as ps
+    from minlz_tpu_torch.ops.device_codec import RANGE
+
+    blocks = [segs[i:i + 32] for i in range(0, len(segs), 32)]
+    for name, kernel, rng in (("compact", ec.COMPACT, RANGE),
+                              ("compact_whole", ec.COMPACT, 0),
+                              ("compact_dense", ec.COMPACT_DENSE, RANGE)):
+        plan = ec.plan_batch(blocks, SEG, rng)
+        t = plan.tensors(dev)
+        recs, counts = ps.parse_planned(t["comp"], t["lane_start"],
+                                        t["lane_len"])
+        wrap, args = compact_args(kernel, recs, counts, t)
+        plain = (ec.compact_records_plain if wrap is ec.compact_records
+                 else ec.compact_records_dense_plain)
+        err[name] = max(err.get(name, 0), require_records(
+            f"{name}, {label}", wrap(*args), plain(*args)))
+        time_compact(f"{name}, {label}", kernel, recs, counts, t, card)
+
+
+def no_sync_phase(plan, t, plan_w, tw, blocks, dev):
+    """The three decode roads, from plan tensors already on the card to
+    the decoded tensor, under torch.cuda.set_sync_debug_mode("error"):
+    any synchronising call (a read back, a blocking copy) raises.  The
+    bytes must be the blocks'."""
+    from minlz_tpu_torch.ops import exec_block as eb
+    from minlz_tpu_torch.ops import exec_chain as ec
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = {"fast": ec.decode_planned(plan, dev, "fast", t),
+                "scheduled": ec.decode_planned(plan, dev, "scheduled", t),
+                "whole": eb.decode_planned_whole(plan_w, dev, tw)}
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = [len(b) for b in blocks]
+    for road, out in outs.items():
+        p = plan_w if road == "whole" else plan
+        if ec.trim_blocks(p, out, want) != blocks:
+            raise AssertionError(f"no-sync phase: the {road} road's bytes "
+                                 f"differ from the input")
+    log(f"no-sync phase: decode_planned (fast, scheduled) and "
+        f"decode_planned_whole on {len(blocks)} x 1 MiB ran from plan "
+        f"tensors on the card to the decoded tensor under "
+        f"set_sync_debug_mode(\"error\") with no synchronising call; bytes "
+        f"== input")
 
 
 def queued_ms(fn, n=20, repeats=REPEATS):
@@ -593,6 +768,23 @@ def queued_ms(fn, n=20, repeats=REPEATS):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
+def host_us(fn, n=20, repeats=REPEATS):
+    """Median host microseconds per call of fn(), n calls issued while the
+    card spins, so that no call waits for it: what a wrapper costs the
+    host (checks, allocations, ctypes, the launches themselves)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        torch.cuda._sleep(20_000_000)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -939,7 +1131,9 @@ def search_path(corpus, dev, card):
 
 # The decode kernels of `mz d -device` (their launch counts' names) and the
 # functions' own names in a trace.
-CLI_KERNELS = {"parse": "parse_kernel", "compact": "compact_kernel",
+CLI_KERNELS = {"parse": "parse_kernel",
+               "lane_offsets": "lane_offsets_kernel",
+               "compact": "compact_kernel",
                "exec_range": "exec_range_kernel"}
 
 
@@ -960,7 +1154,8 @@ def cli_path(corpus, dev, card):
     pattern as often as bytes.count does; `c` and `d` on the host route
     (main(argv, device=None)) build no DeviceCodec.  Last, because the
     profiler stays in the process, `--traceprof D d -device`: its trace holds
-    K1, K2 and K3, a launch each for every batch of 8 blocks, and gives the
+    K1, the lane offset scan, K2 and K3, a launch each for every batch of 8
+    blocks, and gives the
     device's busy time and idle share.  Each rate is printed twice: the
     CLI's own (the codec alone, without reading the input and writing the
     output) and the whole main call, file to file.  Returns the launch
@@ -1184,7 +1379,8 @@ def main():
         raise AssertionError("a corpus block did not compress")
     plan = ec.plan_batch([segments(*e) for e in enc], SEG, RANGE)
     t = plan.tensors(dev)
-    recs, counts, crec, lane_out, first, out = run_stages(t, plan, False)
+    recs, counts, crec, lane_out, total, first, out = run_stages(
+        t, plan, False)
     torch.cuda.synchronize()
     args_parse = (t["comp"], t["lane_start"], t["lane_len"])
     args_compact = (recs, counts, t["lane_start"], t["lane_len"],
@@ -1196,10 +1392,16 @@ def main():
         lambda: ps.parse_segments_plain(*args_parse))
     err["parse"] = max(require_equal("parse counts", counts, counts_p),
                        require_equal("parse records", recs, recs_p))
-    (crec_p, lane_out_p), plain_ms["compact"] = once_ms(
+    compact_p, plain_ms["compact"] = once_ms(
         lambda: ec.compact_records_plain(*args_compact))
-    require_equal("lane offsets", lane_out, lane_out_p)
-    err["compact"] = require_equal("compacted records", crec, crec_p)
+    err["compact"] = require_records("compacted records",
+                                     (crec, lane_out, total), compact_p)
+    (lane_out_p, total_p), plain_ms["lane_offsets"] = once_ms(
+        lambda: ec.lane_offsets_plain(counts))
+    err["lane_offsets"] = max(
+        require_equal("lane offsets", lane_out, lane_out_p),
+        require_equal("record total", total, total_p))
+    crec_p = compact_p[0]
     out_p, plain_ms["exec_range"] = once_ms(
         lambda: ec.execute_ranges_plain(*args_exec))
     err["exec_range"] = require_equal("decoded bytes", out, out_p)
@@ -1208,7 +1410,7 @@ def main():
         if host[o:o + len(b)].tobytes() != b:
             raise AssertionError("the kernels' decode differs from the input")
     n_comp, lanes = t["comp"].numel(), len(plan.lane_len)
-    n_recs, n_ranges = crec.shape[1], len(plan.range_span)
+    n_recs, n_ranges = int(total), len(plan.range_span)
     log(f"decode kernels == plain versions (tolerance 0: integers and "
         f"bytes) on {BATCH_BLOCKS} x 1 MiB: {n_comp} compressed bytes, "
         f"{lanes} lanes, {n_recs} records, {n_ranges} ranges")
@@ -1217,7 +1419,8 @@ def main():
     k_ms = {}
     _, k_ms["parse"], _ = time_parse(f"the corpus, {BATCH_BLOCKS} x 1 MiB",
                                      args_parse, card)
-    for label, segs in parse_inputs().items():
+    made_up = parse_inputs()
+    for label, segs in made_up.items():
         err["parse"] = max(err["parse"], parse_vs_plain(
             f"{label}, first {PLAIN_LANES} lanes", segs[:PLAIN_LANES], dev))
         time_parse(label, lanes_on(segs, dev), card)
@@ -1230,6 +1433,7 @@ def main():
         f"{PARSE_LANES} lanes of each")
     k_ms.update({
         "compact": cuda_ms(lambda: ec.compact_records(*args_compact)),
+        "lane_offsets": cuda_ms(lambda: ec.lane_offsets(counts)),
         "exec_range": cuda_ms(lambda: ec.execute_ranges(*args_exec)),
     })
     # Bytes each function must move (inputs once, outputs once) and its
@@ -1237,7 +1441,9 @@ def main():
     # bytes and two lane arrays in, seven int32 record fields per slot and
     # the counts out; about 40 operations per compressed byte.  compact:
     # five fields of each record and seven lane arrays in, five fields and
-    # the lane offsets out; about 30 operations per record.  exec_range:
+    # the lane offsets out; about 30 operations per record.  lane_offsets:
+    # the int32 counts in, the int64 offsets and total out; about 4
+    # operations per lane.  exec_range:
     # five fields per record, three range arrays and the literal source
     # bytes in, the decoded bytes out; about 2 operations per byte out.
     bounds = {
@@ -1245,19 +1451,35 @@ def main():
                        + 4 * lanes, 40 * n_comp),
         "compact": bound(20 * n_recs + 28 * lanes + 20 * n_recs + 8 * lanes,
                          30 * n_recs),
+        "lane_offsets": bound(4 * lanes + 8 * (lanes + 1), 4 * lanes),
         "exec_range": bound(20 * n_recs + 16 * n_ranges + n_comp
                             + plan.total_out, 2 * plan.total_out),
     }
 
+    # ---- 3a'. kernels 2, 5 and 6 on the made-up batches, and their time --
+    corpus_label = f"the corpus, {BATCH_BLOCKS} x 1 MiB"
+    time_compact(
+        f"compact, {corpus_label}", ec.COMPACT, recs, counts, t, card,
+        BEFORE["compact"])
+    for label, segs in made_up.items():
+        compare_compaction(label, segs, dev, card, err)
+    log(f"compact, compact_whole and compact_dense == plain versions "
+        f"(tolerance 0: lane offsets, total and the first total columns) "
+        f"on the {len(made_up)} made-up batches, at range spans, "
+        f"whole-block spans and dense")
+    del made_up
+
     # ---- 3b. the append-only road on the same batch ------------------------
     args_dense = (recs, counts, t["lane_start"], t["lane_len"])
-    drec, lane_out_d = ec.compact_records_dense(*args_dense)
+    dense = ec.compact_records_dense(*args_dense)
+    drec = dense[0]
     torch.cuda.synchronize()
-    (drec_p, lane_out_dp), plain_ms["compact_dense"] = once_ms(
+    dense_p, plain_ms["compact_dense"] = once_ms(
         lambda: ec.compact_records_dense_plain(*args_dense))
-    require_equal("dense lane offsets", lane_out_d, lane_out_dp)
-    err["compact_dense"] = require_equal("dense records", drec, drec_p)
-    require_equal("dense records vs positioned records", drec, crec[1:])
+    err["compact_dense"] = require_records("dense records", dense, dense_p)
+    require_equal("dense records vs positioned records", drec[:, :n_recs],
+                  crec[1:, :n_recs])
+    drec_p = dense_p[0]
     args_sched = (drec, first) + args_exec[2:]
     out_s = ec.execute_scheduled(*args_sched)
     torch.cuda.synchronize()
@@ -1278,22 +1500,11 @@ def main():
         16 * n_recs + 20 * lanes + 16 * n_recs + 8 * lanes, 10 * n_recs)
     bounds["exec_sched"] = bound(16 * n_recs + 16 * n_ranges + n_comp
                                  + plan.total_out, 2 * plan.total_out)
-    # Kernel 6 alone: the bare launch into a preallocated output, queued,
-    # beside its wrapper (lane_offsets reads the total back, then allocates).
-    lane_out_c, total_c = ec.lane_offsets(counts)
-    d_args = [x.contiguous() for x in (recs, t["lane_start"], t["lane_len"],
-                                       counts, lane_out_c)]
-    d_out = torch.full((4, total_c), SENTINEL, dtype=torch.int32,
-                       device=dev)
-    dense_alone = queued_ms(
-        lambda: ec.launch_compact(ec.COMPACT_DENSE, d_args, d_out))
-    require_equal("compact_dense, bare launch", d_out, drec)
-    log(f"time compact_dense alone: {dense_alone:.4f} ms queued, "
-        f"compact_records_dense {k_ms['compact_dense']:.4f} ms as one call; "
-        f"bound {bounds['compact_dense'][0]:.4f} ms ({n_recs} records, "
-        f"{lanes} lanes)  [{card}]")
-    del d_out, d_args
-    del drec_p, out_s, out_sp, recs_p, crec_p, out_p
+    del drec_p, out_s, out_sp, recs_p, crec_p, out_p, compact_p, dense_p
+
+    time_compact(
+        f"compact_dense, {corpus_label}", ec.COMPACT_DENSE, recs, counts, t,
+        card, BEFORE["compact_dense"])
 
     # ---- 3c. the whole-block road: the same blocks without the clamp -----
     enc_w = ek.encode_blocks_device(blocks, SEG, 0, LEVEL, dev)
@@ -1307,18 +1518,19 @@ def main():
         [split_body(body, parse_hints(payload)[1])
          for body, payload, _ in items_w], SEG, 0)
     tw = plan_w.tensors(dev)
-    recs_w, counts_w, crec_w, lane_out_w, first_w, out_w = run_stages(
-        tw, plan_w, False)
+    recs_w, counts_w, crec_w, lane_out_w, total_w, first_w, out_w = \
+        run_stages(tw, plan_w, False)
     torch.cuda.synchronize()
     args_compact_w = (recs_w, counts_w, tw["lane_start"], tw["lane_len"],
                       tw["lane_lo"], tw["lane_hi"])
     args_block = (crec_w, first_w, tw["range_out"], tw["range_span"],
                   tw["comp"], plan_w.total_out)
-    (crec_wp, lane_out_wp), plain_ms["compact_whole"] = once_ms(
+    compact_wp, plain_ms["compact_whole"] = once_ms(
         lambda: ec.compact_records_plain(*args_compact_w))
-    require_equal("whole-block lane offsets", lane_out_w, lane_out_wp)
-    err["compact_whole"] = require_equal("whole-block compacted records",
-                                         crec_w, crec_wp)
+    err["compact_whole"] = require_records(
+        "whole-block compacted records", (crec_w, lane_out_w, total_w),
+        compact_wp)
+    n_recs_w = int(total_w)
     out_wp, plain_ms["exec_block"] = once_ms(
         lambda: eb.execute_blocks_plain(*args_block))
     err["exec_block"] = require_equal("whole-block decoded bytes", out_w,
@@ -1328,11 +1540,10 @@ def main():
         if host_w[o:o + len(b)].tobytes() != b:
             raise AssertionError("the whole-block decode differs from the "
                                  "input")
-    pos_w, llen_w, clen_w, csrc_w, _ = crec_w.to(torch.int64)
+    pos_w, llen_w, clen_w, csrc_w, _ = crec_w[:, :n_recs_w].to(torch.int64)
     d_w = pos_w + llen_w
     far = int(((clen_w > 0) & ((d_w - csrc_w) // RANGE < d_w // RANGE)).sum())
     n_comp_w, lanes_w = tw["comp"].numel(), len(plan_w.lane_len)
-    n_recs_w = crec_w.shape[1]
     log(f"whole-block kernels == plain versions (tolerance 0) on "
         f"{BATCH_BLOCKS} x 1 MiB without the range clamp: {n_comp_w} "
         f"compressed bytes, {lanes_w} lanes, {n_recs_w} records, "
@@ -1341,6 +1552,10 @@ def main():
         raise AssertionError("the unclamped batch holds no far copy")
     k_ms["compact_whole"] = cuda_ms(
         lambda: ec.compact_records(*args_compact_w))
+    time_compact(
+        f"compact_whole, {corpus_label} without the clamp", ec.COMPACT,
+        recs_w, counts_w, tw, card, BEFORE["compact_whole"])
+    no_sync_phase(plan, t, plan_w, tw, blocks, dev)
     k_ms["exec_block"] = cuda_ms(lambda: eb.execute_blocks(*args_block),
                                  repeats=3)
     bounds["compact_whole"] = bound(
@@ -1349,7 +1564,7 @@ def main():
     bounds["exec_block"] = bound(
         20 * n_recs_w + 16 * BATCH_BLOCKS + n_comp_w + plan_w.total_out,
         2 * plan_w.total_out)
-    del crec_wp, out_wp, pos_w, llen_w, clen_w, csrc_w, d_w
+    del compact_wp, out_wp, pos_w, llen_w, clen_w, csrc_w, d_w
 
     # Mutated block/hint pairs: CorruptError or bytes, no CUDA fault, and
     # kernel == plain version (run on the CPU) wherever the pipeline runs.
@@ -1364,11 +1579,16 @@ def main():
             return False
         seg, rng_b, segs = codec._prepare(body, payload, want)
         mplan = ec.plan_batch([segs], seg, rng_b)
-        kern = run_stages(mplan.tensors(dev), mplan, False)
+        mt = mplan.tensors(dev)
+        kern = run_stages(mt, mplan, False)
         plain = run_stages(mplan.tensors("cpu"), mplan, True)
         torch.cuda.synchronize()
-        for stage, k, p in zip(STAGE_LABELS, kern, plain):
-            require_equal(f"{label}: {stage}", k, p)
+        require_stages(label, kern, plain)
+        dense_args = (kern[0], kern[1], mt["lane_start"], mt["lane_len"])
+        err["compact_dense"] = max(err["compact_dense"], require_records(
+            f"{label}: dense records",
+            ec.compact_records_dense(*dense_args),
+            ec.compact_records_dense_plain(*dense_args)))
         if got != plain[-1].numpy()[:want].tobytes():
             raise AssertionError(f"{label}: codec bytes differ")
         return True
@@ -1546,7 +1766,7 @@ def main():
     tb = plan_big.tensors(dev)
     big_both = log_block_phases(
         "one 8 MiB block without the clamp",
-        (big_stages[2], big_stages[4], tb["range_out"], tb["range_span"],
+        (big_stages[2], big_stages[5], tb["range_out"], tb["range_span"],
          tb["comp"], plan_big.total_out), card)
     log(f"time exec_block per MB: one 8 MiB block {big_both / 8:.4f} ms/MB, "
         f"eight 1 MiB blocks {k_ms['exec_block'] / BATCH_BLOCKS:.4f} ms/MB "
@@ -1628,13 +1848,14 @@ def main():
     ser_ms = host_ms(lambda: [
         native.parse_serialize(corpus[i * MB:(i + 1) * MB], dists[i], SEG,
                                RANGE, LEVEL) for i in range(nb)])
-    dev_ms = cuda_ms(lambda: run_stages(t, plan, False))
+    dev_ms = cuda_ms(lambda: ec.decode_planned(plan, dev, "fast", t))
     items = []
     for block, payload in enc:
         _, want, pos = parse_header(block)
         items.append((block[pos:], payload, want))
     e2e_ms = host_ms(lambda: codec.decode_batch(items))
-    dev_w_ms = cuda_ms(lambda: run_stages(tw, plan_w, False), repeats=3)
+    dev_w_ms = cuda_ms(lambda: eb.decode_planned_whole(plan_w, dev, tw),
+                       repeats=3)
     e2e_w_ms = host_ms(lambda: codec.decode_batch(items_w))
     dev_s_ms = cuda_ms(lambda: ec.decode_planned(plan, dev, "scheduled"))
     dev_s2_ms = cuda_ms(lambda: ec.decode_planned(plan, dev, "scheduled",
@@ -1689,19 +1910,27 @@ def main():
             ("  of which emit_segments", split_ms[3] / nb),
             ("encode_batch_emit host bytes in/out, 16 x 1 MiB",
              emit_e2e_ms / nb),
-            ("decode 3 kernels, device-resident, 8 x 1 MiB",
+            ("decode_planned (fast), device-resident, 8 x 1 MiB",
              dev_ms / BATCH_BLOCKS),
             ("decode_batch host bytes in/out, 8 x 1 MiB",
              e2e_ms / BATCH_BLOCKS),
             ("decode, append-only road (plan copy + 3 kernels), 8 x 1 MiB",
              dev_s_ms / BATCH_BLOCKS),
-            ("decode, append-only road, 3 kernels device-resident, "
-             "8 x 1 MiB", dev_s2_ms / BATCH_BLOCKS),
-            ("decode 3 kernels, whole-block road, device-resident, "
+            ("decode_planned (scheduled), append-only road, "
+             "device-resident, 8 x 1 MiB", dev_s2_ms / BATCH_BLOCKS),
+            ("decode_planned_whole, whole-block road, device-resident, "
              "8 x 1 MiB", dev_w_ms / BATCH_BLOCKS),
             ("decode_batch host bytes in/out, whole-block road, 8 x 1 MiB",
              e2e_w_ms / BATCH_BLOCKS)):
         log(f"time {label}: {val:.4f} ms/MB  [{card}]")
+    for road, val in (("fast", dev_ms), ("scheduled", dev_s2_ms),
+                      ("whole", dev_w_ms)):
+        name = "decode_planned_whole" if road == "whole" else \
+            "decode_planned"
+        log(f"time compact {name} ({road}), device-resident from plan "
+            f"tensors on the card, {BATCH_BLOCKS} x 1 MiB: "
+            f"{val / BATCH_BLOCKS:.4f} ms/MB; the earlier design "
+            f"{BEFORE[road]:.4f} ms/MB  [{card}]")
     log(f"peak device memory, encode_block_emit on 16 x 1 MiB: "
         f"{emit_peak / (1 << 20):.0f} MiB  [{card}]")
 
@@ -1716,15 +1945,16 @@ def main():
         if path_launches["cli"][count] != 0:
             raise AssertionError(f"the cli path launched {count}")
     for label, fn, reps, before in (
-            ("decode 3 kernels, device-resident, 8 x 1 MiB",
-             lambda: run_stages(t, plan, False), REPEATS, dev_ms),
-            ("decode, append-only road, 3 kernels device-resident, "
-             "8 x 1 MiB", lambda: ec.decode_planned(plan, dev, "scheduled",
-                                                    tensors=t),
-             REPEATS, dev_s2_ms),
-            ("decode 3 kernels, whole-block road, device-resident, "
-             "8 x 1 MiB", lambda: run_stages(tw, plan_w, False), 3,
-             dev_w_ms)):
+            ("decode_planned (fast), device-resident, 8 x 1 MiB",
+             lambda: ec.decode_planned(plan, dev, "fast", t), REPEATS,
+             dev_ms),
+            ("decode_planned (scheduled), append-only road, "
+             "device-resident, 8 x 1 MiB",
+             lambda: ec.decode_planned(plan, dev, "scheduled", t), REPEATS,
+             dev_s2_ms),
+            ("decode_planned_whole, whole-block road, device-resident, "
+             "8 x 1 MiB", lambda: eb.decode_planned_whole(plan_w, dev, tw),
+             3, dev_w_ms)):
         after = cuda_ms(fn, repeats=reps)
         log(f"time after the cli path (torch.profiler has run) {label}: "
             f"{after / BATCH_BLOCKS:.4f} ms/MB, before it "
@@ -1733,6 +1963,7 @@ def main():
               "greedy": "16 x 1 MiB batch, greedy_parse as one call",
               "exec_block": "8 x 1 MiB batch without the clamp",
               "compact_whole": "8 x 1 MiB batch without the clamp",
+              "lane_offsets": "8 x 1 MiB batch, the lane counts",
               "probe_scalar": f"{SCALAR_STEPS} steps x "
                               f"{SCALAR_CHAINS[-1]} chains, device memory",
               "probe_gather": f"{GATHER_TABLES[-1][0]} x 1024 gathers from "

@@ -30,9 +30,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # One count per kernel.  "compact" counts the positioned compaction at
 # range spans and at whole-block spans alike: it is one kernel.
-KERNELS = ("parse", "compact", "exec_range", "greedy", "exec_block",
-           "compact_dense", "exec_sched", "probe_scalar", "probe_gather",
-           "probe_taa", "probe_chain_body", "ablate_exec")
+# "lane_offsets" is the scan of the lane counts in front of both
+# compactions.
+KERNELS = ("parse", "lane_offsets", "compact", "exec_range", "greedy",
+           "exec_block", "compact_dense", "exec_sched", "probe_scalar",
+           "probe_gather", "probe_taa", "probe_chain_body", "ablate_exec")
 _launches = dict.fromkeys(KERNELS, 0)
 _lock = threading.Lock()
 _lib = None
@@ -43,6 +45,8 @@ _SIGNATURES = {
     # stream
     "minlz_parse": [_P, ctypes.c_longlong, _P, _P, ctypes.c_int, _P,
                     ctypes.c_longlong, _P, _P],
+    # lane_cnt, lanes, lane_out, stream
+    "minlz_lane_offsets": [_P, ctypes.c_int, _P, _P],
     # recs, n_slots, lane_start, lane_len, lane_cnt, lane_out, lane_lo,
     # lane_hi, lanes, out, n_out, stream
     "minlz_compact": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P,

@@ -41,11 +41,15 @@ TILES, FIXUP = 1, 2  # the phases of a launch
 
 
 def execute_blocks(crec, block_first, block_out, block_span, comp,
-                   total_out: int):
+                   total_out: int, spans_checked: bool = False):
     """crec [5, n] int32 (pos, llen, clen, csrc, lit) with block-local
     positions; block_first [B + 1] int64 record offsets; block_out [B] int64
     output offsets; block_span [B] int32; comp [m] uint8.  Returns the
-    decoded bytes, [total_out] uint8.  The blocks are expected to tile the
+    decoded bytes, [total_out] uint8.  Block b reads records
+    [block_first[b], block_first[b + 1]) only (clamped into [0, n]).  On
+    the card a block outside the output raises ValueError, unless
+    ``spans_checked`` says the blocks are a ``BatchPlan``'s ranges.  The
+    blocks are expected to tile the
     output, and each block's records that hold any bytes to move forward
     without overlapping, as compaction leaves them (a record of no bytes may
     stand anywhere): overlapping records have no last writer here or in the
@@ -54,7 +58,7 @@ def execute_blocks(crec, block_first, block_out, block_span, comp,
         return execute_blocks_plain(crec, block_first, block_out,
                                     block_span, comp, total_out)
     args = range_args("execute_blocks", crec, 5, block_first, block_out,
-                      block_span, comp, total_out)
+                      block_span, comp, total_out, spans_checked)
     out = torch.empty(total_out, dtype=torch.uint8, device=crec.device)
     launch_blocks(args, out, blocks_scratch(args, out))
     return out
@@ -104,17 +108,18 @@ def decode_planned_whole(plan, device="cuda", tensors: dict | None = None):
     """Run parse -> compact -> execute for a whole-block plan
     (``plan_batch(..., rng=0)``) on ``device``; returns the batch's decoded
     bytes as a [plan.total_out] uint8 tensor there.  ``tensors`` as for
-    ``exec_chain.decode_planned``."""
+    ``exec_chain.decode_planned``; as there, nothing is read back from the
+    card on the way from them to the result."""
     if plan.rng:
         raise ValueError("not a whole-block plan")
     t = plan.tensors(device) if tensors is None else tensors
     recs, counts = parse_planned(t["comp"], t["lane_start"], t["lane_len"])
-    crec, lane_out = compact_records(recs, counts, t["lane_start"],
-                                     t["lane_len"], t["lane_lo"],
-                                     t["lane_hi"])
-    first = range_firsts(lane_out, crec.shape[1], t["range_lane"])
+    crec, lane_out, total = compact_records(
+        recs, counts, t["lane_start"], t["lane_len"], t["lane_lo"],
+        t["lane_hi"])
+    first = range_firsts(lane_out, total, t["range_lane"])
     return execute_blocks(crec, first, t["range_out"], t["range_span"],
-                          t["comp"], plan.total_out)
+                          t["comp"], plan.total_out, spans_checked=True)
 
 
 def decode_blocks_whole(blocks_segs, out_totals, seg: int, device="cuda"):

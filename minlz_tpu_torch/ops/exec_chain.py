@@ -82,6 +82,12 @@ class BatchPlan:
     block_out: list         # per block: (output offset, nseg * seg)
     total_out: int          # decoded bytes of the batch, before trimming
 
+    def __post_init__(self):
+        # The executors' check of the ranges, made here on the host once,
+        # so that a decode of the plan reads nothing back from the card.
+        check_spans(torch.from_numpy(self.range_out),
+                    torch.from_numpy(self.range_span), self.total_out)
+
     def tensors(self, device) -> dict:
         dev = resolve_device(device)
         return {
@@ -161,6 +167,7 @@ def plan_batch(blocks_segs, seg: int, rng: int = RANGE) -> BatchPlan:
 # Compaction: per-lane record lists -> per-range dense lists
 # --------------------------------------------------------------------------
 
+OFFSETS = "lane_offsets"
 COMPACT = "compact"
 COMPACT_DENSE = "compact_dense"
 EXEC = "exec_range"
@@ -168,55 +175,91 @@ EXEC_SCHED = "exec_sched"
 
 
 def lane_offsets(counts):
-    """Exclusive prefix sum of the lane record counts (int64): each lane's
-    first slot in the dense lists.  Returns (lane_out, total)."""
+    """Exclusive prefix sum of the lane record counts [lanes] int32, in
+    int64: each lane's first column in the dense lists.  Returns (lane_out
+    [lanes], total [1]), both int64 tensors on the counts' device (views of
+    one [lanes + 1] tensor); nothing comes back to the host.  A CUDA tensor
+    launches ``csrc/compact.cu``'s scan, one block."""
+    dev = counts.device
+    if dev.type == "cpu":
+        return lane_offsets_plain(counts)
+    if dev.type != "cuda":
+        raise ValueError(f"no lane offset kernel for device {dev}")
+    if counts.dtype != _I32 or counts.dim() != 1:
+        raise ValueError("counts must be a 1-D int32 tensor")
+    off = torch.empty(counts.numel() + 1, dtype=_I64, device=dev)
+    launch_offsets(counts.contiguous(), off)
+    return off[:-1], off[-1:]
+
+
+def launch_offsets(counts, off):
+    """The bare launch of the lane offset scan: checked, contiguous CUDA
+    ``counts`` [lanes] int32 in, ``off`` [lanes + 1] int64 written in
+    place."""
+    lib = _build.load()
+    _build.check(lib, lib.minlz_lane_offsets(
+        counts.data_ptr(), counts.numel(), off.data_ptr(),
+        _build.stream_of(counts)))
+    _build.count_launch(OFFSETS)
+
+
+def lane_offsets_plain(counts):
+    """Plain torch version of ``lane_offsets`` (any device)."""
     incl = torch.cumsum(counts, 0, dtype=_I64)
-    total = int(incl[-1]) if incl.numel() else 0
-    return incl - counts, total
+    off = torch.cat([incl.new_zeros(1), incl])
+    return off[:-1], off[-1:]
 
 
-def _check_lanes(name, dev, tensors, dtypes):
-    for t, dt in zip(tensors, dtypes):
+def _compact_args(name, recs, counts, lanes, dtypes):
+    """The checked, contiguous arguments of a compaction launch: recs, the
+    lane arrays (lane_start, lane_len, counts[, lane_lo, lane_hi]) and,
+    after counts, lane_out from the offset scan; then the total."""
+    dev = recs.device
+    if dev.type != "cuda":
+        raise ValueError(f"no compaction kernel for device {dev}")
+    if recs.dim() != 2 or recs.shape[0] != 7:
+        raise ValueError("recs must be [7, n_slots]")
+    args = [t.contiguous() for t in (recs, *lanes[:2], counts, *lanes[2:])]
+    for t, dt in zip(args, (_I32, *dtypes)):
         if t.dtype != dt or t.device != dev:
             raise ValueError(f"{name}: wrong dtype or device")
-    if any(t.shape != tensors[1].shape for t in tensors[1:]):
+    if any(t.shape != args[1].shape for t in args[2:]):
         raise ValueError(f"{name}: lane arrays differ in length")
+    lane_out, total = lane_offsets(args[3])
+    return [*args[:4], lane_out, *args[4:]], total
 
 
 def compact_records(recs, counts, lane_start, lane_len, lane_lo, lane_hi):
-    """recs [7, n_slots] / counts [lanes]: the parse output.  Returns
-    (out [5, total] int32 with rows pos, llen, clen, csrc, lit; lane_out
-    [lanes] int64).  Lanes are in range order, so range r's records are
-    out[:, first[r]:first[r + 1]] with ``first = range_firsts(...)``.
+    """recs [7, n_slots] / counts [lanes]: the parse output.  Returns (out
+    [5, n_slots] int32 with rows pos, llen, clen, csrc, lit; lane_out
+    [lanes] int64; total [1] int64), all on the device, nothing read back.
+    Columns [0, total) hold the records, lanes in range order, so range r's
+    records are out[:, first[r]:first[r + 1]] with ``first =
+    range_firsts(lane_out, total, ...)``; the columns past the total are
+    unspecified (the kernel leaves them unwritten).  n_slots is the parse's
+    slot capacity, len + 1 a lane, which no lane's count exceeds.
 
     With whole-block lane spans (``plan_batch(..., rng=0)``: lane i of a
     block owns [i * seg, (i + 1) * seg) of it) the same launch is the
     counterpart of ``minlz_tpu.ops.pallas_decode.compact_ops``: one dense
     list per block, in output order, with block-local positions."""
-    dev = recs.device
-    if dev.type == "cpu":
+    if recs.device.type == "cpu":
         return compact_records_plain(recs, counts, lane_start, lane_len,
                                      lane_lo, lane_hi)
-    if dev.type != "cuda":
-        raise ValueError(f"no compaction kernel for device {dev}")
-    if recs.dim() != 2 or recs.shape[0] != 7:
-        raise ValueError("recs must be [7, n_slots]")
-    lane_out, total = lane_offsets(counts)
-    out = torch.empty((5, total), dtype=_I32, device=dev)
-    args = [t.contiguous() for t in (recs, lane_start, lane_len, counts,
-                                     lane_out, lane_lo, lane_hi)]
-    _check_lanes("compact_records", dev, args,
-                 (_I32, _I32, _I32, _I32, _I64, _I32, _I32))
+    args, total = _compact_args(
+        "compact_records", recs, counts,
+        (lane_start, lane_len, lane_lo, lane_hi), (_I32,) * 5)
+    out = torch.empty((5, recs.shape[1]), dtype=_I32, device=recs.device)
     launch_compact(COMPACT, args, out)
-    return out, lane_out
+    return out, args[4], total
 
 
 def launch_compact(kernel: str, args, out):
     """The bare launch of a compaction kernel, ``COMPACT`` or
     ``COMPACT_DENSE``.  args: the checked, contiguous CUDA tensors (recs,
     lane_start, lane_len, counts, lane_out[, lane_lo, lane_hi]); ``out``
-    [5 or 4, total] is written in place.  No check, no allocation, no read
-    back; measurements time this."""
+    [5 or 4, n_slots] is written in place, its first total columns.  No
+    check, no allocation, no read back; measurements time this."""
     lib = _build.load()
     fn = lib.minlz_compact if kernel == COMPACT else lib.minlz_compact_dense
     _build.check(lib, fn(
@@ -227,16 +270,27 @@ def launch_compact(kernel: str, args, out):
     _build.count_launch(kernel)
 
 
+def _lane_ranks(recs, counts, lane_start):
+    """(lane_out, total, n, lane, rank, slot) of the plain compactions:
+    each of the n = total records' lane, its rank in the lane and its
+    parse slot.  Reads the total back (the plain versions are the CPU path
+    and the reference)."""
+    lane_out, total = lane_offsets_plain(counts)
+    n = int(total)
+    dev = recs.device
+    lane = torch.repeat_interleave(torch.arange(counts.numel(), device=dev),
+                                   counts.to(_I64), output_size=n)
+    rank = torch.arange(n, device=dev) - lane_out[lane]
+    slot = lane_start.to(_I64)[lane] + lane + rank
+    return lane_out, total, n, lane, rank, slot
+
+
 def compact_records_plain(recs, counts, lane_start, lane_len, lane_lo,
                           lane_hi):
-    """Plain torch version of ``compact_records`` (any device)."""
-    lane_out, total = lane_offsets(counts)
-    dev = recs.device
-    lanes = counts.numel()
-    lane = torch.repeat_interleave(torch.arange(lanes, device=dev),
-                                   counts.to(_I64), output_size=total)
-    rank = torch.arange(total, device=dev) - lane_out[lane]
-    slot = lane_start.to(_I64)[lane] + lane + rank
+    """Plain torch version of ``compact_records`` (any device): the same
+    first total columns, zeros past them."""
+    lane_out, total, n, lane, rank, slot = _lane_ranks(recs, counts,
+                                                        lane_start)
     dst, clen, csrc, lsrc, llen = recs[1:6, slot].to(_I64)
     llen = llen.clamp(min=0)
     clen = clen.clamp(min=0)
@@ -256,66 +310,75 @@ def compact_records_plain(recs, counts, lane_start, lane_len, lane_lo,
     cl = torch.minimum(clen, avail - ll)
     ls = torch.minimum(lsrc.clamp(min=0), lane_len.to(_I64)[lane])
     lit = lane_start.to(_I64)[lane] + ls
-    out = torch.stack([p, ll, cl, csrc.clamp(min=1), lit]).to(_I32)
-    return out, lane_out
+    out = recs.new_zeros((5, recs.shape[1]))
+    out[:, :n] = torch.stack([p, ll, cl, csrc.clamp(min=1), lit]).to(_I32)
+    return out, lane_out, total
 
 
 def compact_records_dense(recs, counts, lane_start, lane_len):
     """The append-only compaction, counterpart of
     ``minlz_tpu.ops.exec_chain.compact_ops_dense``.  recs [7, n_slots] /
-    counts [lanes]: the parse output.  Returns (out [4, total] int32 with
-    rows llen, clen, max(csrc, 1), lit; lane_out [lanes] int64), in range
-    order.  No output position and no keep test: the executor's cursor only
-    moves forward.  llen and clen are clamped at 0 and the literal index
-    into the lane's compressed bytes."""
-    dev = recs.device
-    if dev.type == "cpu":
+    counts [lanes]: the parse output.  Returns (out [4, n_slots] int32 with
+    rows llen, clen, max(csrc, 1), lit; lane_out [lanes] int64; total [1]
+    int64), in range order, under ``compact_records``' contract: columns
+    [0, total) hold the records, those past it are unspecified.  No output
+    position and no keep test: the executor's cursor only moves forward.
+    llen and clen are clamped at 0 and the literal index into the lane's
+    compressed bytes."""
+    if recs.device.type == "cpu":
         return compact_records_dense_plain(recs, counts, lane_start,
                                            lane_len)
-    if dev.type != "cuda":
-        raise ValueError(f"no compaction kernel for device {dev}")
-    if recs.dim() != 2 or recs.shape[0] != 7:
-        raise ValueError("recs must be [7, n_slots]")
-    lane_out, total = lane_offsets(counts)
-    out = torch.empty((4, total), dtype=_I32, device=dev)
-    args = [t.contiguous() for t in (recs, lane_start, lane_len, counts,
-                                     lane_out)]
-    _check_lanes("compact_records_dense", dev, args,
-                 (_I32, _I32, _I32, _I32, _I64))
+    args, total = _compact_args("compact_records_dense", recs, counts,
+                                (lane_start, lane_len), (_I32,) * 3)
+    out = torch.empty((4, recs.shape[1]), dtype=_I32, device=recs.device)
     launch_compact(COMPACT_DENSE, args, out)
-    return out, lane_out
+    return out, args[4], total
 
 
 def compact_records_dense_plain(recs, counts, lane_start, lane_len):
-    """Plain torch version of ``compact_records_dense`` (any device)."""
-    lane_out, total = lane_offsets(counts)
-    dev = recs.device
-    lane = torch.repeat_interleave(
-        torch.arange(counts.numel(), device=dev), counts.to(_I64),
-        output_size=total)
-    rank = torch.arange(total, device=dev) - lane_out[lane]
-    slot = lane_start.to(_I64)[lane] + lane + rank
+    """Plain torch version of ``compact_records_dense`` (any device): the
+    same first total columns, zeros past them."""
+    lane_out, total, n, lane, _, slot = _lane_ranks(recs, counts,
+                                                    lane_start)
     clen, csrc, lsrc, llen = recs[2:6, slot].to(_I64)
     ls = torch.minimum(lsrc.clamp(min=0), lane_len.to(_I64)[lane])
-    out = torch.stack([llen.clamp(min=0), clen.clamp(min=0),
-                       csrc.clamp(min=1),
-                       lane_start.to(_I64)[lane] + ls]).to(_I32)
-    return out, lane_out
+    out = recs.new_zeros((4, recs.shape[1]))
+    out[:, :n] = torch.stack([llen.clamp(min=0), clen.clamp(min=0),
+                              csrc.clamp(min=1),
+                              lane_start.to(_I64)[lane] + ls]).to(_I32)
+    return out, lane_out, total
 
 
 # --------------------------------------------------------------------------
 # Execution: per-range record lists -> decoded bytes
 # --------------------------------------------------------------------------
 
-def range_firsts(lane_out, total: int, range_lane):
+def range_firsts(lane_out, total, range_lane):
     """[R + 1] int64 record offsets of each range in the dense lists, from
-    the first lane of every range (``range_lane`` [R + 1] int64)."""
-    return torch.cat([lane_out, lane_out.new_full((1,), total)])[range_lane]
+    the first lane of every range (``range_lane`` [R + 1] int64).
+    ``total``: the record total, the end of the last range; a [1] tensor
+    as the compactions return it (nothing is read back) or an int."""
+    end = total.reshape(1) if torch.is_tensor(total) else \
+        lane_out.new_full((1,), total)
+    return torch.cat([lane_out, end.to(lane_out)])[range_lane]
+
+
+def check_spans(range_out, range_span, total_out: int):
+    """Raise ValueError unless every range [range_out[r], range_out[r] +
+    range_span[r]) lies within the output [0, total_out).  Tensors on any
+    device; on the card two reductions come back to the host."""
+    if range_span.numel() and (
+            int(range_out.min()) < 0
+            or int((range_out + range_span.to(_I64)).max()) > total_out):
+        raise ValueError("a range lies outside the output")
 
 
 def range_args(name, crec, rows, range_first, range_out, range_span, comp,
-               total_out):
-    """The contiguous, checked arguments of a range executor's launch."""
+               total_out, spans_checked: bool = False):
+    """The contiguous, checked arguments of a range executor's launch.
+    ``spans_checked``: the ranges are a ``BatchPlan``'s, whose spans were
+    checked on the host when it was made, so ``check_spans`` (two reads
+    back from the card) is skipped."""
     dev = crec.device
     if dev.type != "cuda":
         raise ValueError(f"no {name} kernel for device {dev}")
@@ -329,18 +392,21 @@ def range_args(name, crec, rows, range_first, range_out, range_span, comp,
     if range_first.numel() != range_span.numel() + 1 \
             or range_out.numel() != range_span.numel():
         raise ValueError("range_first must have one entry per range + 1")
-    if range_span.numel() and (
-            int(range_out.min()) < 0
-            or int((range_out + range_span.to(_I64)).max()) > total_out):
-        raise ValueError("a range lies outside the output")
+    if not spans_checked:
+        check_spans(args[2], args[3], total_out)
     return args
 
 
 def execute_ranges(crec, range_first, range_out, range_span, comp,
-                   total_out: int, max_span: int = RANGE):
+                   total_out: int, max_span: int = RANGE,
+                   spans_checked: bool = False):
     """crec [5, n] int32 (pos, llen, clen, csrc, lit); range_first [R + 1]
     int64; range_out [R] int64; range_span [R] int32 (each <= max_span);
-    comp [m] uint8.  Returns the decoded bytes, [total_out] uint8.  The
+    comp [m] uint8.  Returns the decoded bytes, [total_out] uint8.  Range r
+    reads records [range_first[r], range_first[r + 1]) only (clamped into
+    [0, n]), so columns outside every range may hold anything.  On the
+    card a range outside the output raises ValueError, unless
+    ``spans_checked`` says the ranges are a ``BatchPlan``'s.  The
     ranges are expected to tile the output, as a plan's do: the kernels
     leave bytes outside every range unwritten (the plain versions give 0).
     Each range's records that hold any bytes are expected to move forward
@@ -351,7 +417,7 @@ def execute_ranges(crec, range_first, range_out, range_span, comp,
         return execute_ranges_plain(crec, range_first, range_out,
                                     range_span, comp, total_out, max_span)
     args = range_args("execute_ranges", crec, 5, range_first, range_out,
-                      range_span, comp, total_out)
+                      range_span, comp, total_out, spans_checked)
     out = torch.empty(total_out, dtype=torch.uint8, device=crec.device)
     launch_execute(EXEC, args, max_span, out)
     return out
@@ -458,11 +524,13 @@ def execute_ranges_plain(crec, range_first, range_out, range_span, comp,
 
 
 def execute_scheduled(drec, range_first, range_out, range_span, comp,
-                      total_out: int, max_span: int = RANGE):
+                      total_out: int, max_span: int = RANGE,
+                      spans_checked: bool = False):
     """The append-only executor, counterpart of
     ``minlz_tpu.ops.exec_chain.execute_scheduled`` in both of its arena
     layouts.  drec [4, n] int32 (llen, clen, csrc, lit) from
-    ``compact_records_dense``; the other arguments as ``execute_ranges``.
+    ``compact_records_dense``; the other arguments as ``execute_ranges``,
+    which reads the same columns.
     Per range a cursor starts at 0; each record places its literals at the
     cursor and then its copy, each clipped to the range span, and the
     cursor never passes the span.  A record belongs to one range at most
@@ -473,7 +541,7 @@ def execute_scheduled(drec, range_first, range_out, range_span, comp,
         return execute_scheduled_plain(drec, range_first, range_out,
                                        range_span, comp, total_out, max_span)
     args = range_args("execute_scheduled", drec, 4, range_first, range_out,
-                      range_span, comp, total_out)
+                      range_span, comp, total_out, spans_checked)
     out = torch.empty(total_out, dtype=torch.uint8, device=drec.device)
     launch_execute(EXEC_SCHED, args, max_span, out, sched_scratch(args))
     return out
@@ -550,7 +618,9 @@ def decode_planned(plan: BatchPlan, device="cuda", executor: str = "fast",
     batch's decoded bytes as a [plan.total_out] uint8 tensor there.
     ``tensors``: the plan's arrays already on the device
     (``plan.tensors(device)``), for a caller that decodes one plan many
-    times; by default they are copied there now."""
+    times; by default they are copied there now.  From those tensors to the
+    result nothing is read back from the card: the record total stays
+    there and the plan's ranges were checked when it was made."""
     if executor not in EXECUTORS:
         raise ValueError(f"executor must be one of {EXECUTORS}")
     if not 0 < plan.rng <= RANGE:
@@ -559,17 +629,17 @@ def decode_planned(plan: BatchPlan, device="cuda", executor: str = "fast",
     t = plan.tensors(device) if tensors is None else tensors
     recs, counts = parse_planned(t["comp"], t["lane_start"], t["lane_len"])
     if executor == "fast":
-        crec, lane_out = compact_records(recs, counts, t["lane_start"],
-                                         t["lane_len"], t["lane_lo"],
-                                         t["lane_hi"])
+        crec, lane_out, total = compact_records(
+            recs, counts, t["lane_start"], t["lane_len"], t["lane_lo"],
+            t["lane_hi"])
         execute = execute_ranges
     else:
-        crec, lane_out = compact_records_dense(recs, counts, t["lane_start"],
-                                               t["lane_len"])
+        crec, lane_out, total = compact_records_dense(
+            recs, counts, t["lane_start"], t["lane_len"])
         execute = execute_scheduled
-    first = range_firsts(lane_out, crec.shape[1], t["range_lane"])
+    first = range_firsts(lane_out, total, t["range_lane"])
     return execute(crec, first, t["range_out"], t["range_span"], t["comp"],
-                   plan.total_out, plan.max_span)
+                   plan.total_out, plan.max_span, spans_checked=True)
 
 
 def trim_blocks(plan: BatchPlan, out, out_totals):

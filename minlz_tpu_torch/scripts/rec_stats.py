@@ -26,10 +26,10 @@ from ..ops.device_codec import RANGE
 ROW_B = 512
 
 
-def record_stats(recs, lane_out, n_recs: int, range_lane) -> dict:
+def record_stats(recs, lane_out, n_recs, range_lane) -> dict:
     """Counts over the parse output ``recs`` [7, n_slots] (kind, dst, clen,
-    csrc, lsrc, llen, lacc); the range figures need the lane offsets of a
-    compaction."""
+    csrc, lsrc, llen, lacc); the range figures need the lane offsets and
+    the record total (``exec_chain.lane_offsets``)."""
     kind, dst, clen, csrc, _, llen, _ = recs.to(torch.int64)
     real = kind > 0
     q = dst & (ROW_B - 1)

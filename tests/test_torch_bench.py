@@ -149,3 +149,39 @@ def test_scripts_refuse_a_missing_gpu():
         pytest.skip("a GPU is present")
     with pytest.raises(RuntimeError):
         rec_stats.main(["--mb", "0.03125", "--block-kb", "32"])
+
+
+def test_sanitize_workload_runs_on_the_cpu(capsys):
+    """The workload the sanitizer checks runs to its end through the plain
+    versions (the corpus batch decodes to its input, mutated copies
+    decode without a fault)."""
+    from minlz_tpu_torch.scripts import sanitize_kernels
+
+    rc = sanitize_kernels.main(["--workload", "--device", "cpu", "--blocks",
+                                "1", "--block-kb", "32", "--mutated", "1"])
+    assert rc == 0
+    assert capsys.readouterr().out.startswith("launches {")
+
+
+def test_sanitize_reports_what_it_could_not_check(tmp_path, monkeypatch,
+                                                  capsys):
+    """No compute-sanitizer: exit 2, nothing run.  A sanitizer that refuses
+    the device ("Device not supported"): the tool's status is "refused",
+    not clean; one that reports errors: "FAILED"."""
+    import argparse
+
+    from minlz_tpu_torch.scripts import sanitize_kernels as sk
+
+    monkeypatch.setattr(sk, "find_sanitizer", lambda: None)
+    assert sk.main([]) == 2
+    assert "not found" in capsys.readouterr().out
+    opt = argparse.Namespace(blocks=1, block_kb=32, mutated=0, timeout=60)
+    for said, status in (("Error: Device not supported.", "refused"),
+                         ("ERROR SUMMARY: 3 errors", "FAILED")):
+        fake = tmp_path / "fake-sanitizer"
+        fake.write_text(f"#!/bin/sh\necho '========= {said}'\nexit 97\n")
+        fake.chmod(0o755)
+        got, text, counts = sk.run_tool(str(fake), "memcheck", opt,
+                                        str(tmp_path / "logs"))
+        assert got == status and counts is None and "rc 97" in text
+        assert (tmp_path / "logs" / "sanitize_memcheck.log").exists()

@@ -36,10 +36,10 @@ def _stages(twain, rng_bytes):
     plan = tec.plan_batch(segs, 4096, rng_bytes)
     t = plan.tensors("cuda")
     recs, counts = parse_segments(t["comp"], t["lane_start"], t["lane_len"])
-    crec, lane_out = tec.compact_records(recs, counts, t["lane_start"],
-                                         t["lane_len"], t["lane_lo"],
-                                         t["lane_hi"])
-    return blocks, segs, plan, t, recs, counts, crec, lane_out
+    crec, lane_out, total = tec.compact_records(
+        recs, counts, t["lane_start"], t["lane_len"], t["lane_lo"],
+        t["lane_hi"])
+    return blocks, segs, plan, t, recs, counts, crec, lane_out, total
 
 
 @pytest.fixture(scope="module")
@@ -52,8 +52,20 @@ def whole_stages(twain):
     return _stages(twain, 0)
 
 
+def _same_records(kernel, plain):
+    """A compaction's (out, lane_out, total) against its plain version's:
+    the same capacity, lane offsets and total, and the same first total
+    columns (those past it are unspecified)."""
+    out, lane_out, total = kernel
+    out_p, lane_out_p, total_p = plain
+    n = int(total)
+    assert out.shape == out_p.shape
+    assert torch.equal(lane_out, lane_out_p) and torch.equal(total, total_p)
+    assert torch.equal(out[:, :n], out_p[:, :n])
+
+
 def test_parse_kernel_matches_plain(stages):
-    _, _, _, t, recs, counts, _, _ = stages
+    _, _, _, t, recs, counts, _, _, _ = stages
     recs_p, counts_p = parse_segments_plain(t["comp"], t["lane_start"],
                                             t["lane_len"])
     assert torch.equal(counts, counts_p)
@@ -61,17 +73,15 @@ def test_parse_kernel_matches_plain(stages):
 
 
 def test_compact_kernel_matches_plain(stages):
-    _, _, _, t, recs, counts, crec, lane_out = stages
-    crec_p, lane_out_p = tec.compact_records_plain(
+    _, _, _, t, recs, counts, crec, lane_out, total = stages
+    _same_records((crec, lane_out, total), tec.compact_records_plain(
         recs, counts, t["lane_start"], t["lane_len"], t["lane_lo"],
-        t["lane_hi"])
-    assert torch.equal(lane_out, lane_out_p)
-    assert torch.equal(crec, crec_p)
+        t["lane_hi"]))
 
 
 def test_exec_kernel_matches_plain(stages):
-    blocks, segs, plan, t, _, _, crec, lane_out = stages
-    first = tec.range_firsts(lane_out, crec.shape[1], t["range_lane"])
+    blocks, segs, plan, t, _, _, crec, lane_out, total = stages
+    first = tec.range_firsts(lane_out, total, t["range_lane"])
     args = (crec, first, t["range_out"], t["range_span"], t["comp"],
             plan.total_out, plan.max_span)
     out = tec.execute_ranges(*args)
@@ -84,18 +94,16 @@ def test_exec_kernel_matches_plain(stages):
 
 def test_whole_block_compaction_matches_plain(whole_stages):
     """The compaction kernel at whole-block lane spans (the v1 compaction)."""
-    _, _, plan, t, recs, counts, crec, lane_out = whole_stages
+    _, _, plan, t, recs, counts, crec, lane_out, total = whole_stages
     assert plan.rng == 0 and len(plan.range_span) == 3
-    crec_p, lane_out_p = tec.compact_records_plain(
+    _same_records((crec, lane_out, total), tec.compact_records_plain(
         recs, counts, t["lane_start"], t["lane_len"], t["lane_lo"],
-        t["lane_hi"])
-    assert torch.equal(lane_out, lane_out_p)
-    assert torch.equal(crec, crec_p)
+        t["lane_hi"]))
 
 
 def test_block_executor_matches_plain(whole_stages):
-    blocks, segs, plan, t, _, _, crec, lane_out = whole_stages
-    first = tec.range_firsts(lane_out, crec.shape[1], t["range_lane"])
+    blocks, segs, plan, t, _, _, crec, lane_out, total = whole_stages
+    first = tec.range_firsts(lane_out, total, t["range_lane"])
     args = (crec, first, t["range_out"], t["range_span"], t["comp"],
             plan.total_out)
     out = teb.execute_blocks(*args)
@@ -108,20 +116,21 @@ def test_block_executor_matches_plain(whole_stages):
 
 
 def test_dense_compaction_matches_plain(stages):
-    _, _, _, t, recs, counts, crec, lane_out = stages
+    _, _, _, t, recs, counts, crec, lane_out, total = stages
     args = (recs, counts, t["lane_start"], t["lane_len"])
-    drec, lane_out_d = tec.compact_records_dense(*args)
-    drec_p, lane_out_p = tec.compact_records_dense_plain(*args)
-    assert torch.equal(lane_out_d, lane_out_p)
-    assert torch.equal(drec, drec_p)
-    assert torch.equal(drec, crec[1:])  # a valid stream: same records
+    dense = tec.compact_records_dense(*args)
+    _same_records(dense, tec.compact_records_dense_plain(*args))
+    n = int(total)
+    assert torch.equal(dense[2], total)
+    # A valid stream: the same records.
+    assert torch.equal(dense[0][:, :n], crec[1:, :n])
 
 
 def test_scheduled_executor_matches_plain(stages):
-    blocks, segs, plan, t, recs, counts, crec, lane_out = stages
-    drec, _ = tec.compact_records_dense(recs, counts, t["lane_start"],
-                                        t["lane_len"])
-    first = tec.range_firsts(lane_out, drec.shape[1], t["range_lane"])
+    blocks, segs, plan, t, recs, counts, crec, lane_out, total = stages
+    drec, _, _ = tec.compact_records_dense(recs, counts, t["lane_start"],
+                                           t["lane_len"])
+    first = tec.range_firsts(lane_out, total, t["range_lane"])
     common = (first, t["range_out"], t["range_span"], t["comp"],
               plan.total_out, plan.max_span)
     out = tec.execute_scheduled(drec, *common)
@@ -132,6 +141,98 @@ def test_scheduled_executor_matches_plain(stages):
                                     RANGE, "cuda", executor="scheduled")
     torch.cuda.synchronize()
     assert got == blocks
+
+
+@pytest.mark.parametrize("lanes", [0, 1, 4095, 4096, 4097, 10000])
+def test_lane_offset_scan_matches_plain(lanes):
+    """The one-block scan loops over chunks of 4096 counts: offsets and
+    total equal the plain cumsum's at chunk edges and past them, with
+    counts up to 2^31 - 1 (the int64 sums do not wrap)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    g = np.random.default_rng(lanes)
+    counts = g.integers(0, 5000, lanes).astype(np.int32)
+    counts[::97] = np.iinfo(np.int32).max
+    counts = torch.from_numpy(counts)
+    lane_out, total = tec.lane_offsets(counts.cuda())
+    torch.cuda.synchronize()
+    want_out, want_total = tec.lane_offsets_plain(counts)
+    assert torch.equal(lane_out.cpu(), want_out)
+    assert torch.equal(total.cpu(), want_total)
+
+
+def _compactions_vs_plain(plan):
+    """Both compaction kernels against their plain versions on a plan:
+    the positioned one at the plan's lane spans, the dense one."""
+    t = plan.tensors("cuda")
+    recs, counts = parse_segments(t["comp"], t["lane_start"], t["lane_len"])
+    lanes = (t["lane_start"], t["lane_len"], t["lane_lo"], t["lane_hi"])
+    _same_records(tec.compact_records(recs, counts, *lanes),
+                  tec.compact_records_plain(recs, counts, *lanes))
+    _same_records(tec.compact_records_dense(recs, counts, *lanes[:2]),
+                  tec.compact_records_dense_plain(recs, counts, *lanes[:2]))
+
+
+@pytest.mark.parametrize("rng_bytes", [RANGE, 0])
+def test_compaction_kernels_on_mutated_input(stages, rng_bytes):
+    """Mutated segment bytes (bit flips, truncations, splices, huge
+    varints) give hostile records: kernel == plain version at range spans
+    and at whole-block spans, and on the dense road."""
+    from minlz_tpu_torch.testing import mutate
+
+    _, segs, _, _, _, _, _, _, _ = stages
+    g = np.random.default_rng(41)
+    for _ in range(6):
+        bad = [[mutate(g, s) if g.random() < 0.3 else s for s in blk]
+               for blk in segs]
+        _compactions_vs_plain(tec.plan_batch(bad, 4096, rng_bytes))
+
+
+def test_unwritten_columns_reach_no_executor(stages, whole_stages):
+    """The compaction leaves columns past the total unwritten: with those
+    columns filled with hostile words, K3, the append-only executor and
+    the whole-block executor give the same bytes, as they read only
+    [range_first[r], range_first[r + 1])."""
+    for st, whole in ((stages, False), (whole_stages, True)):
+        _, _, plan, t, recs, counts, crec, lane_out, total = st
+        n = int(total)
+        assert n < crec.shape[1]
+        junk = crec.clone()
+        junk[:, n:] = torch.tensor([0, 2 ** 31 - 1, 2 ** 31 - 1, 1, -1],
+                                   dtype=torch.int32, device="cuda")[:, None]
+        first = tec.range_firsts(lane_out, total, t["range_lane"])
+        common = (first, t["range_out"], t["range_span"], t["comp"],
+                  plan.total_out)
+        if whole:
+            assert torch.equal(teb.execute_blocks(junk, *common),
+                               teb.execute_blocks(crec, *common))
+            continue
+        assert torch.equal(tec.execute_ranges(junk, *common, plan.max_span),
+                           tec.execute_ranges(crec, *common, plan.max_span))
+        assert torch.equal(
+            tec.execute_scheduled(junk[1:].contiguous(), *common,
+                                  plan.max_span),
+            tec.execute_scheduled(crec[1:].contiguous(), *common,
+                                  plan.max_span))
+
+
+def test_decode_roads_do_not_synchronise(stages, whole_stages):
+    """From plan tensors already on the card to the decoded tensor, the
+    three roads make no synchronising call (torch's sync debug mode
+    raises on one)."""
+    blocks, _, plan, t, _, _, _, _, _ = stages
+    _, _, plan_w, tw, _, _, _, _, _ = whole_stages
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [tec.decode_planned(plan, "cuda", "fast", t),
+                tec.decode_planned(plan, "cuda", "scheduled", t),
+                teb.decode_planned_whole(plan_w, "cuda", tw)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = [len(b) for b in blocks]
+    for p, out in zip((plan, plan, plan_w), outs):
+        assert tec.trim_blocks(p, out, want) == blocks
 
 
 def test_hostile_records_kernels_match_plain():
@@ -172,11 +273,20 @@ def test_hostile_records_kernels_match_plain():
     counts = torch.from_numpy(
         g.integers(0, lane_len.numpy() + 2).astype(np.int32))
     cargs = (torch.from_numpy(recs), counts, lane_start, lane_len)
-    drec_k, off_k = tec.compact_records_dense(*(a.cuda() for a in cargs))
+    dense = tec.compact_records_dense(*(a.cuda() for a in cargs))
     torch.cuda.synchronize()
-    drec_p, off_p = tec.compact_records_dense_plain(*cargs)
-    assert torch.equal(drec_k.cpu(), drec_p) and torch.equal(off_k.cpu(),
-                                                             off_p)
+    _same_records([x.cpu() for x in dense],
+                  tec.compact_records_dense_plain(*cargs))
+    # The positioned compaction on the same records, with random lane spans:
+    # starts and ends past int32, negative lengths, the keep test's carry
+    # across chunks of 32.
+    lo = torch.from_numpy(g.integers(0, 5000, lanes).astype(np.int32))
+    hi = lo + torch.from_numpy(g.integers(0, 5000, lanes).astype(np.int32))
+    pargs = cargs + (lo, hi)
+    positioned = tec.compact_records(*(a.cuda() for a in pargs))
+    torch.cuda.synchronize()
+    _same_records([x.cpu() for x in positioned],
+                  tec.compact_records_plain(*pargs))
 
 
 # ---- the parallel resolution on records made for it ------------------------

@@ -179,8 +179,9 @@ def test_two_blocks_match_jax_executor(twain):
 def _check_clamps(plan, crec, first):
     """Compaction's guarantees: every record lies inside its range span
     (a whole block on the whole-block road), and a range's records move
-    forward without overlapping."""
-    pos, llen, clen, csrc, lit = crec.to(torch.int64)
+    forward without overlapping.  The records are the columns before the
+    last range's end, the total."""
+    pos, llen, clen, csrc, lit = crec[:, :int(first[-1])].to(torch.int64)
     assert bool((csrc >= 1).all())
     assert bool(((lit >= 0) & (lit <= len(plan.comp))).all())
     for r, span in enumerate(plan.range_span):
@@ -228,12 +229,11 @@ def test_fuzz_mutated_hints_and_body():
         t = plan.tensors("cpu")
         recs, counts = parse_segments(t["comp"], t["lane_start"],
                                       t["lane_len"])
-        crec, lane_out = tec.compact_records(
+        crec, lane_out, total = tec.compact_records(
             recs, counts, t["lane_start"], t["lane_len"], t["lane_lo"],
             t["lane_hi"])
         _check_clamps(plan, crec,
-                      tec.range_firsts(lane_out, crec.shape[1],
-                                       t["range_lane"]))
+                      tec.range_firsts(lane_out, total, t["range_lane"]))
     assert decoded >= 3
 
     # The same mutated bodies under well-formed hints without a clamp.
@@ -249,9 +249,8 @@ def test_fuzz_mutated_hints_and_body():
         t = plan.tensors("cpu")
         recs, counts = parse_segments(t["comp"], t["lane_start"],
                                       t["lane_len"])
-        crec, lane_out = tec.compact_records(
+        crec, lane_out, total = tec.compact_records(
             recs, counts, t["lane_start"], t["lane_len"], t["lane_lo"],
             t["lane_hi"])
         _check_clamps(plan, crec,
-                      tec.range_firsts(lane_out, crec.shape[1],
-                                       t["range_lane"]))
+                      tec.range_firsts(lane_out, total, t["range_lane"]))

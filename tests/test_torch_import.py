@@ -47,6 +47,7 @@ for wanted in ("minlz_tpu_torch.stream.writer", "minlz_tpu_torch.ops.emit",
                "minlz_tpu_torch.scripts.rec_stats",
                "minlz_tpu_torch.scripts.enc_probe",
                "minlz_tpu_torch.scripts.emit_probe",
+               "minlz_tpu_torch.scripts.sanitize_kernels",
                "minlz_tpu_torch.parallel", "minlz_tpu_torch.parallel.mesh",
                "minlz_tpu_torch.parallel.ranks", "minlz_tpu_torch.search",
                "minlz_tpu_torch.search.build",

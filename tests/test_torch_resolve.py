@@ -222,10 +222,10 @@ def _compacted(segs, seg, rng):
     plan = tec.plan_batch([segs], seg, rng)
     t = plan.tensors("cpu")
     recs, counts = parse_segments(t["comp"], t["lane_start"], t["lane_len"])
-    crec, lane_out = tec.compact_records(recs, counts, t["lane_start"],
-                                         t["lane_len"], t["lane_lo"],
-                                         t["lane_hi"])
-    first = tec.range_firsts(lane_out, crec.shape[1], t["range_lane"])
+    crec, lane_out, total = tec.compact_records(
+        recs, counts, t["lane_start"], t["lane_len"], t["lane_lo"],
+        t["lane_hi"])
+    first = tec.range_firsts(lane_out, total, t["range_lane"])
     return plan, (crec, first, t["range_out"], t["range_span"], t["comp"],
                   plan.total_out)
 

@@ -209,21 +209,22 @@ def test_dense_compaction_matches_jax_field_by_field(batch):
     plan = tec.plan_batch(segs, SEG, RANGE)
     t = plan.tensors("cpu")
     recs, counts = parse_segments(t["comp"], t["lane_start"], t["lane_len"])
-    drec, lane_out = tec.compact_records_dense(recs, counts, t["lane_start"],
-                                               t["lane_len"])
-    assert drec.shape == (4, total) and total > 1000
+    drec, lane_out, n = tec.compact_records_dense(
+        recs, counts, t["lane_start"], t["lane_len"])
+    assert drec.shape == (4, recs.shape[1]) and int(n) == total > 1000
     want = dense_ops_to_records(ops, [total], pc, guard, plan.lane_start)
     for row, name in enumerate(("llen", "clen", "csrc", "lit")):
-        np.testing.assert_array_equal(drec[row].numpy(), want[row], name)
+        np.testing.assert_array_equal(drec[row, :total].numpy(), want[row],
+                                      name)
 
     # The positioned compaction holds the same records, with a position.
-    crec, lane_out2 = tec.compact_records(recs, counts, t["lane_start"],
-                                          t["lane_len"], t["lane_lo"],
-                                          t["lane_hi"])
-    assert torch.equal(lane_out, lane_out2)
-    assert torch.equal(crec[1:], drec)
+    crec, lane_out2, n2 = tec.compact_records(
+        recs, counts, t["lane_start"], t["lane_len"], t["lane_lo"],
+        t["lane_hi"])
+    assert torch.equal(lane_out, lane_out2) and torch.equal(n, n2)
+    assert torch.equal(crec[1:, :total], drec[:, :total])
 
-    first = tec.range_firsts(lane_out, total, t["range_lane"])
+    first = tec.range_firsts(lane_out, n, t["range_lane"])
     out = tec.execute_scheduled(
         torch.from_numpy(want), first, t["range_out"], t["range_span"],
         t["comp"], plan.total_out, plan.max_span)
@@ -241,11 +242,11 @@ def test_dense_compaction_clamps_hostile_fields():
     recs[:, 0] = torch.tensor([1, 0, -5, 0, -3, 7, 0])
     recs[:, 1] = torch.tensor([2, 9, 40, -9, 99, -1, 0])
     recs[:, 11] = torch.tensor([2, 0, 3, 2 ** 31 - 1, 4, 2 ** 31 - 1, 0])
-    drec, lane_out = tec.compact_records_dense(recs, counts, lane_start,
-                                               lane_len)
-    assert lane_out.tolist() == [0, 2]
-    assert drec.tolist() == [[7, 0, 2 ** 31 - 1], [0, 40, 3],
-                             [1, 1, 2 ** 31 - 1], [0, 10, 14]]
+    drec, lane_out, total = tec.compact_records_dense(recs, counts,
+                                                      lane_start, lane_len)
+    assert lane_out.tolist() == [0, 2] and total.tolist() == [3]
+    assert drec[:, :3].tolist() == [[7, 0, 2 ** 31 - 1], [0, 40, 3],
+                                    [1, 1, 2 ** 31 - 1], [0, 10, 14]]
 
 
 # ---- the kernel's composition: a cursor scan, then K3's tiled resolution ----

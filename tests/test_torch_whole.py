@@ -82,9 +82,10 @@ def test_far_copy_reaches_an_earlier_range(twain):
     plan = tec.plan_batch([segs], SEG, 0)
     t = plan.tensors("cpu")
     recs, counts = parse_segments(t["comp"], t["lane_start"], t["lane_len"])
-    crec, _ = tec.compact_records(recs, counts, t["lane_start"],
-                                  t["lane_len"], t["lane_lo"], t["lane_hi"])
-    pos, llen, clen, csrc, _ = crec.to(torch.int64)
+    crec, _, total = tec.compact_records(recs, counts, t["lane_start"],
+                                         t["lane_len"], t["lane_lo"],
+                                         t["lane_hi"])
+    pos, llen, clen, csrc, _ = crec[:, :int(total)].to(torch.int64)
     d = pos + llen
     far = (clen > 0) & ((d - csrc) // RANGE < d // RANGE)
     assert int(far.sum()) >= 1
@@ -194,9 +195,10 @@ def test_plan_whole_blocks_of_unequal_size():
     assert plan.max_span == 5 * SEG and plan.rng == 0
     assert bytes(plan.comp) == b"abcdefgh" + b"i" * 5
     lane_out = torch.arange(9, dtype=torch.int64) * 10
-    first = tec.range_firsts(lane_out, 95,
-                             torch.from_numpy(plan.range_lane))
-    assert first.tolist() == [0, 30, 40, 40, 95]
+    for total in (95, torch.tensor([95])):
+        first = tec.range_firsts(lane_out, total,
+                                 torch.from_numpy(plan.range_lane))
+        assert first.tolist() == [0, 30, 40, 40, 95]
     # Ranged plans keep their lanes padded to whole ranges.
     ranged = tec.plan_batch(blocks, SEG, 2 * SEG)
     assert ranged.range_lane.tolist() == [0, 2, 4, 6, 8, 10, 12]
