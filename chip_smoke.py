@@ -13,7 +13,9 @@ the whole-block road).  The fourth sends the clamped stream's blocks through
 decode_blocks_chained(executor="scheduled"), the append-only road.  One
 8 MiB block (16 KiB segments) goes through Writer and Reader and through
 decode_block_whole.  The five probe kernels (ops/probe.py) are held against
-their plain versions at their scripts' default sizes and then driven through
+their plain versions at their scripts' default sizes (the chain body also in
+the shared space at the JAX script's 4096 rows, 16 and 32 chains; it and the
+ablation launch a thread block a chain) and then driven through
 the port's measurement scripts (kernel_probe, exec_probe body, ablate_exec),
 whose lines are printed as "time probe ..."; minlz_tpu_torch.bench.main runs
 at 8 MiB and profile_decode prints each decode kernel's time alone beside its
@@ -103,6 +105,10 @@ PLAIN_LANES = 64         # lanes of them held against the plain version
 PROBE_SPACES = (("shared", 256), ("global", 4096))
 SCALAR_STEPS, SCALAR_CHAINS = 8192, (1, 2, 4, 8, 16)
 BODY_STEPS, BODY_CHAINS = 4096, (1, 8, 16, 32)
+# exec_probe body's shared sweep: the JAX script's 4096 rows at each of
+# BODY_CHAINS whose region fits a block (16 and 32 chains: 256 and 128
+# rows a block, which the one-block design refused; 1 and 8 do not fit).
+BODY_SHARED_ROWS = 4096
 GATHER_TABLES = ((512, 1), (512, 2), (512, 4), (256, 9))  # (iters, 4 KiB)
 TAA_ITERS = 2048
 ABLATE_RECORDS, ABLATE_CHAINS, ABLATE_ROWS = 4096, (8, 16), 128
@@ -111,7 +117,7 @@ ABLATE_RECORDS, ABLATE_CHAINS, ABLATE_ROWS = 4096, (8, 16), 128
 # outside the tensor cores, taken as the rate of scalar int32 arithmetic.
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
-# One SM of it, for the probes, which launch one thread block: at the
+# One SM of it, for the probes that launch one thread block: at the
 # 1.98 GHz boost clock, 64 bytes a clock from L2 into the SM (every byte
 # of device memory reaches the SM that way; the rate is the L1's fill path
 # as on earlier NVIDIA SMs, not a published H100 figure, so the bound may
@@ -394,7 +400,10 @@ def compare_probes(dev, card):
     """Each probe kernel against its plain version on the card, the whole
     buffer, at its script's default size, on seeded non-zero data.  Returns
     (max abs err, kernel ms, plain ms, bound) per kernel; the times and the
-    bound are of the largest configuration of each."""
+    bound are of the largest configuration of each.  The chain body and the
+    ablation run a thread block a chain across the card, so their bound is
+    the card's (``bound``); the other three run one block, and theirs is
+    one SM's (``bound_one_sm``)."""
     from minlz_tpu_torch.ops import probe
 
     def to_dev(arrays):
@@ -403,7 +412,7 @@ def compare_probes(dev, card):
     err, k_ms, plain_ms, bounds = {}, {}, {}, {}
 
     def held(name, label, kernel_fn, plain_fn, timed, n_bytes, n_ops,
-             shared_bytes=0):
+             shared_bytes=0, one_sm=True):
         got = kernel_fn()
         torch.cuda.synchronize()
         want, p_ms = once_ms(plain_fn)
@@ -412,8 +421,21 @@ def compare_probes(dev, card):
         if timed:
             k_ms[name] = cuda_ms(kernel_fn)
             plain_ms[name] = p_ms
-            # One thread block: one SM's rates (bound_one_sm).
-            bounds[name] = bound_one_sm(n_bytes, n_ops, shared_bytes)
+            bounds[name] = (bound_one_sm(n_bytes, n_ops, shared_bytes)
+                            if one_sm else bound(n_bytes, n_ops))
+
+    def held_body(rows, c, space, timed_as):
+        meta, buf = to_dev(probe.chain_body_inputs(BODY_STEPS, c, rows,
+                                                   fill=True))
+        for mode in ("minimal", "realign"):
+            # About 6 operations a word: select, four mask tests, and.
+            held("probe_chain_body", f"{c} chains, {mode}, {space}, "
+                 f"{rows} rows",
+                 lambda: probe.probe_chain_body(meta, buf, c, mode, space),
+                 lambda: probe.probe_chain_body_plain(meta, buf, c, mode),
+                 (space, c, mode) == timed_as,
+                 4 * meta.numel() + 8 * buf.numel(),
+                 6 * 128 * BODY_STEPS * c, one_sm=False)
 
     for space, rows in PROBE_SPACES:
         for c in SCALAR_CHAINS:
@@ -427,24 +449,19 @@ def compare_probes(dev, card):
                  4 * steps.numel() + 8 * buf.numel(),
                  128 * SCALAR_STEPS * c)
         for c in BODY_CHAINS:
-            meta, buf = to_dev(probe.chain_body_inputs(BODY_STEPS, c, rows,
-                                                       fill=True))
-            for mode in ("minimal", "realign"):
-                # About 6 operations a word: select, four mask tests, and.
-                held("probe_chain_body", f"{c} chains, {mode}, {space}",
-                     lambda: probe.probe_chain_body(meta, buf, c, mode,
-                                                    space),
-                     lambda: probe.probe_chain_body_plain(meta, buf, c,
-                                                          mode),
-                     (space, c, mode) == ("global", BODY_CHAINS[-1],
-                                          "realign"),
-                     4 * meta.numel() + 8 * buf.numel(),
-                     6 * 128 * BODY_STEPS * c)
+            held_body(rows, c, space, ("global", BODY_CHAINS[-1], "realign"))
+    shared_chains = [c for c in BODY_CHAINS
+                     if probe.body_shared_bytes(BODY_SHARED_ROWS, c)
+                     <= probe.SHARED_LIMIT]
+    for c in shared_chains:
+        held_body(BODY_SHARED_ROWS, c, "shared", None)
     log(f"probe_scalar == plain version (tolerance 0, whole buffer) at "
         f"{SCALAR_STEPS} steps x {SCALAR_CHAINS} chains, and "
         f"probe_chain_body at {BODY_STEPS} steps x {BODY_CHAINS} chains x "
-        f"(minimal, realign), each on {PROBE_SPACES}: compared and timed at "
-        f"the same, full size")
+        f"(minimal, realign), each on {PROBE_SPACES}, and in the shared "
+        f"space at {BODY_SHARED_ROWS} rows x {shared_chains} chains "
+        f"(grid: a block a chain): compared and timed at the same, full "
+        f"size")
     for iters, vregs in GATHER_TABLES:
         tbl, idx = to_dev(probe.gather_inputs(iters, vregs, wrap=True))
         # Table, indices and sums through L2; a 4-byte shared-memory read
@@ -478,10 +495,11 @@ def compare_probes(dev, card):
                                                  chain_rows=ABLATE_ROWS),
                  (variant, c) == ("full", ABLATE_CHAINS[0]),
                  4 * (counts.numel() + ops.numel() + 2 * arena.numel()),
-                 2 * moved)
+                 2 * moved, one_sm=False)
     log(f"ablate_exec == plain version (tolerance 0, whole arena) in "
         f"{probe.VARIANTS} at {ABLATE_RECORDS} records x {ABLATE_CHAINS} "
-        f"chains: compared and timed at the same, full size  [{card}]")
+        f"chains (grid: a block a chain): compared and timed at the same, "
+        f"full size  [{card}]")
     return err, k_ms, plain_ms, bounds
 
 
@@ -1970,9 +1988,11 @@ def main():
                               f"{GATHER_TABLES[-1][1] * 1024} words",
               "probe_taa": f"{TAA_ITERS} x 1024 in-row gathers",
               "probe_chain_body": f"{BODY_STEPS} steps x {BODY_CHAINS[-1]} "
-                                  f"chains, realign, device memory",
+                                  f"chains, realign, device memory, grid "
+                                  f"{BODY_CHAINS[-1]} blocks",
               "ablate_exec": f"full, {ABLATE_RECORDS} records x "
-                             f"{ABLATE_CHAINS[0]} chains"}
+                             f"{ABLATE_CHAINS[0]} chains, grid "
+                             f"{ABLATE_CHAINS[0]} blocks"}
     for name in KERNELS:
         log(f"time kernel {name}: {k_ms[name]:.4f} ms, plain version "
             f"{plain_ms[name]:.4f} ms, bound {bounds[name][0]:.4f} ms by "

@@ -32,25 +32,31 @@
 // byte-addressed kernel has neither, so they shed nothing here; they are
 // ported so that every variant's stored words have a counterpart.
 //
-// One WARP per chain, all chains in one thread block: a record moves about
-// ten bytes, fewer than a warp has lanes, so a whole block per chain would
-// add barrier cost and no width, and __syncwarp() orders a chain's moves at
-// a few cycles each.  The chains of one block share one SM, as the TPU's
-// lockstep chains share one core, so the chain count is the number of walks
-// whose latencies overlap.
+// One THREAD BLOCK a chain, spread over the SMs: the TPU kernel kept the
+// whole arena in VMEM on a core that is the whole chip, and a chain never
+// sees another chain's stores, so the chains need not share an SM.  Warp 0
+// walks the chain: a record moves about ten bytes, fewer than a warp has
+// lanes, so more walkers would add barrier cost and no width, and
+// __syncwarp() orders a chain's moves at a few cycles each.  All the
+// block's threads stage the chain's region [lo, hi) of the arena in
+// dynamic shared memory first and write it back once at the end, so every
+// read and store of the region, including the copies that read what the
+// chain has just written, stays in shared memory.
 //
 // What bounds it: the serial chain of moves of one chain (a copy may read
-// what the move before it wrote), that is latency in device memory (the
-// arena of a megabyte sits in L2), not bytes.  What the design does about
-// it: the records are fetched ahead, 32 at a time with coalesced loads, two
-// batches in flight, and handed out by shuffle, so the chain holds only the
-// byte moves.
+// what the move before it wrote), that is the latency of a dependent move
+// in shared memory, not bytes.  What the design does about it: the records
+// are fetched ahead, 32 at a time with coalesced loads, two batches in
+// flight, and handed out by shuffle, so the chain holds only the byte
+// moves; a read outside the region (the literal rows) goes through the
+// read-only path, where the 4 KiB of literals stay in L1.
 //
-// A read takes the chain's own region from the arena being written and every
-// other byte from the input arena: a chain never sees another chain's
-// stores, in whatever order the warps run.  A read outside the arena gives
-// 0 and a store outside the chain's region is dropped; the wrapper refuses
-// input whose chains outgrow their regions.
+// A read takes the chain's own region from shared memory and every other
+// byte from the input arena: a chain never sees another chain's stores, in
+// whatever order the blocks run.  A read outside the arena gives 0 and a
+// store outside the chain's region is dropped; the wrapper refuses input
+// whose chains outgrow their regions, and regions that do not fit shared
+// memory.
 
 #include "common.cuh"
 
@@ -64,20 +70,25 @@ enum Variant { kFullV = 0, kOnewin = 1, kNorealign = 2, kNomask = 3,
 
 struct Chain {
   const unsigned char* in;  // the input arena
-  unsigned char* out;       // the arena being written
+  unsigned char* stage;     // the chain's region, in shared memory
   long long lo, hi;         // the chain's region, byte addresses
   long long n_bytes;        // arena size
   int lane;
+
+  __device__ __forceinline__ bool own(long long s) const {
+    return s >= lo && s < hi;
+  }
 };
 
 __device__ __forceinline__ unsigned char rd(const Chain& c, long long s) {
+  if (c.own(s)) return c.stage[s - c.lo];
   if (s < 0 || s >= c.n_bytes) return 0;
-  return (s >= c.lo && s < c.hi) ? c.out[s] : c.in[s];
+  return __ldg(c.in + s);
 }
 
 __device__ __forceinline__ void wr(const Chain& c, long long d,
                                    unsigned char v) {
-  if (d >= c.lo && d < c.hi) c.out[d] = v;
+  if (c.own(d)) c.stage[d - c.lo] = v;
 }
 
 // n bytes from src to dst, the lanes side by side; every source byte was
@@ -97,11 +108,13 @@ __device__ __forceinline__ void move_row(const Chain& c, long long dst,
   // outside the chain's region, which is whole rows: one 16-byte load and
   // one 16-byte store a lane.  dst is always the first byte of a row.
   if ((src & (kRowB - 1)) == 0 && src >= 0 && src + kRowB <= c.n_bytes) {
-    const unsigned char* from = (src >= c.lo && src < c.hi) ? c.out : c.in;
-    const int4 row = reinterpret_cast<const int4*>(from + src)[c.lane];
+    const int4 row =
+        c.own(src)
+            ? reinterpret_cast<const int4*>(c.stage + (src - c.lo))[c.lane]
+            : __ldg(reinterpret_cast<const int4*>(c.in + src) + c.lane);
     __syncwarp();
-    if (dst >= c.lo && dst < c.hi)
-      reinterpret_cast<int4*>(c.out + dst)[c.lane] = row;
+    if (c.own(dst))
+      reinterpret_cast<int4*>(c.stage + (dst - c.lo))[c.lane] = row;
     __syncwarp();
     return;
   }
@@ -168,24 +181,13 @@ struct Records {
   }
 };
 
+// Warp 0's walk of its chain: count records from ops, the chain's own.
 template <int V>
-__global__ void ablate_kernel(const int* __restrict__ counts,
-                              const int* __restrict__ ops, int cap,
-                              const unsigned char* __restrict__ arena_in,
-                              unsigned char* out, int n_rows,
-                              int out_base_row, int chain_rows) {
-  const int ch = threadIdx.x >> 5;
-  Chain c;
-  c.in = arena_in;
-  c.out = out;
-  c.lane = threadIdx.x & 31;
-  c.lo = ((long long)out_base_row + (long long)ch * chain_rows) * kRowB;
-  c.hi = c.lo + (long long)chain_rows * kRowB;
-  c.n_bytes = (long long)n_rows * kRowB;
+__device__ void walk(const Chain& c, const int* __restrict__ ops, int count,
+                     int n_rows) {
   const long long last_row = c.hi / kRowB - 1;
-  const int count = min(max(counts[ch], 0), cap);
   Records recs;
-  recs.init(ops + (long long)ch * cap * 3, count, c.lane);
+  recs.init(ops, count, c.lane);
   long long cur = c.lo;
 
   if (V == kFullV) {
@@ -275,51 +277,88 @@ __global__ void ablate_kernel(const int* __restrict__ counts,
   }
 }
 
+// Threads of a block: all stage the region and write it back, warp 0
+// walks.
+constexpr int kStageThreads = 256;
+
+// Block ch walks chain ch over its region, rows out_base_row + ch *
+// chain_rows onwards, staged in chain_rows * 512 bytes of dynamic shared
+// memory.
 template <int V>
-void launch(const void* counts, const void* ops, int cap, int nchain,
-            const void* arena_in, void* out, int n_rows, int out_base_row,
-            int chain_rows, cudaStream_t stream) {
-  ablate_kernel<V><<<1, 32 * nchain, 0, stream>>>(
+__global__ void ablate_kernel(const int* __restrict__ counts,
+                              const int* __restrict__ ops, int cap,
+                              const unsigned char* __restrict__ arena_in,
+                              unsigned char* out, int n_rows,
+                              int out_base_row, int chain_rows) {
+  extern __shared__ int4 stage[];
+  const int ch = blockIdx.x;
+  Chain c;
+  c.in = arena_in;
+  c.stage = reinterpret_cast<unsigned char*>(stage);
+  c.lane = threadIdx.x & 31;
+  c.lo = ((long long)out_base_row + (long long)ch * chain_rows) * kRowB;
+  c.hi = c.lo + (long long)chain_rows * kRowB;
+  c.n_bytes = (long long)n_rows * kRowB;
+  const int n_vecs = chain_rows * (kRowB / 16);
+  const int4* from = reinterpret_cast<const int4*>(arena_in + c.lo);
+  for (int i = threadIdx.x; i < n_vecs; i += blockDim.x)
+    stage[i] = __ldg(from + i);
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    walk<V>(c, ops + (long long)ch * cap * 3, min(max(counts[ch], 0), cap),
+            n_rows);
+  }
+  __syncthreads();
+  int4* to = reinterpret_cast<int4*>(out + c.lo);
+  for (int i = threadIdx.x; i < n_vecs; i += blockDim.x) to[i] = stage[i];
+}
+
+template <int V>
+int launch(const void* counts, const void* ops, int cap, int nchain,
+           const void* arena_in, void* out, int n_rows, int out_base_row,
+           int chain_rows, cudaStream_t stream) {
+  const int smem = chain_rows * kRowB;
+  cudaError_t err = cudaFuncSetAttribute(
+      ablate_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  ablate_kernel<V><<<nchain, kStageThreads, smem, stream>>>(
       (const int*)counts, (const int*)ops, cap,
       (const unsigned char*)arena_in, (unsigned char*)out, n_rows,
       out_base_row, chain_rows);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // counts: [nchain] int32; ops: [nchain, cap, 3] int32; arena_in: the input
-// arena, [n_rows, 128] int32; out: a copy of it, which the chains write.
-// variant: 0 full, 1 onewin, 2 norealign, 3 nomask, 4 minimal.  nchain <= 32.
+// arena, [n_rows, 128] int32; out: a copy of it, whose regions the chains
+// write.  variant: 0 full, 1 onewin, 2 norealign, 3 nomask, 4 minimal.  One
+// block a chain; a region of chain_rows * 512 bytes must fit a block's
+// shared memory (the wrapper checks).
 MINLZ_EXPORT int minlz_ablate_exec(const void* counts, const void* ops,
                                    int cap, int nchain, const void* arena_in,
                                    void* out, int n_rows, int out_base_row,
                                    int chain_rows, int variant,
                                    void* stream) {
-  if (nchain <= 0) return (int)cudaGetLastError();
+  if (nchain <= 0 || chain_rows <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   switch (variant) {
     case kFullV:
-      launch<kFullV>(counts, ops, cap, nchain, arena_in, out, n_rows,
-                     out_base_row, chain_rows, s);
-      break;
+      return launch<kFullV>(counts, ops, cap, nchain, arena_in, out, n_rows,
+                            out_base_row, chain_rows, s);
     case kOnewin:
-      launch<kOnewin>(counts, ops, cap, nchain, arena_in, out, n_rows,
-                      out_base_row, chain_rows, s);
-      break;
+      return launch<kOnewin>(counts, ops, cap, nchain, arena_in, out, n_rows,
+                             out_base_row, chain_rows, s);
     case kNorealign:
-      launch<kNorealign>(counts, ops, cap, nchain, arena_in, out, n_rows,
-                         out_base_row, chain_rows, s);
-      break;
+      return launch<kNorealign>(counts, ops, cap, nchain, arena_in, out,
+                                n_rows, out_base_row, chain_rows, s);
     case kNomask:
-      launch<kNomask>(counts, ops, cap, nchain, arena_in, out, n_rows,
-                      out_base_row, chain_rows, s);
-      break;
+      return launch<kNomask>(counts, ops, cap, nchain, arena_in, out, n_rows,
+                             out_base_row, chain_rows, s);
     case kMinimal:
-      launch<kMinimal>(counts, ops, cap, nchain, arena_in, out, n_rows,
-                       out_base_row, chain_rows, s);
-      break;
+      return launch<kMinimal>(counts, ops, cap, nchain, arena_in, out,
+                              n_rows, out_base_row, chain_rows, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

@@ -19,6 +19,10 @@ row 0 only):
 * ``ablate_exec``: ``nchain`` synthetic LZ record chains over one arena, in
   five variants (``csrc/ablate.cu`` defines them).
 
+The first three kernels run in one thread block (one SM); the chain body and
+the ablation run one thread block a chain, each staging its chain's region
+of the buffer or arena in shared memory.
+
 Each wrapper launches its CUDA kernel (``csrc/probe.cu``,
 ``csrc/ablate.cu``) for CUDA tensors and runs its plain torch version, in
 this module, for CPU tensors.  The ``*_inputs`` functions build, with numpy
@@ -42,7 +46,7 @@ ROW_B = 512
 GATHER_ELEMS = 8 * ROW_WORDS
 # Dynamic shared memory one thread block can use on Hopper.
 SHARED_LIMIT = 232448
-MAX_CHAINS = 32             # one warp per chain, one thread block
+MAX_CHAINS = 32             # probe_scalar: a warp a chain, all in one block
 SPACES = ("shared", "global")
 # The JAX probe's "taa" and "roll" realign the window in two ways and give
 # the same words: both are "realign" here.
@@ -81,18 +85,21 @@ def _check_chain(name, steps, per_step, buf, n_chains, space):
     if buf.shape[1] != ROW_WORDS or buf.shape[0] < 1:
         raise ValueError(f"buf must be [rows, {ROW_WORDS}]")
     if not 1 <= n_chains <= MAX_CHAINS:
-        raise ValueError(f"{name} walks 1..{MAX_CHAINS} chains, one warp "
-                         f"each")
+        raise ValueError(f"{name} walks 1..{MAX_CHAINS} chains")
     if steps.numel() % (per_step * n_chains):
         raise ValueError(f"steps must hold n_chains * n_ops * {per_step} "
                          f"entries")
     if space not in SPACES:
         raise ValueError(f"space must be one of {SPACES}")
-    if space == "shared" and buf.numel() * 4 > SHARED_LIMIT:
-        raise ValueError(
-            f"buf of {buf.numel() * 4} bytes does not fit the "
-            f"{SHARED_LIMIT} bytes of shared memory a block can use")
     return steps.numel() // (per_step * n_chains)
+
+
+def body_shared_bytes(n_rows: int, n_chains: int) -> int:
+    """Shared memory of one ``probe_chain_body`` block in the shared space:
+    its chain's region of ``n_rows // n_chains`` rows and a flag byte a row,
+    rounded up to 16 bytes (``csrc/probe.cu``)."""
+    region = n_rows // n_chains
+    return region * ROW_B + -(-region // 16) * 16
 
 
 def probe_scalar(rows, buf, n_chains: int, space: str = "global"):
@@ -103,6 +110,10 @@ def probe_scalar(rows, buf, n_chains: int, space: str = "global"):
     buffer, ``"shared"`` (staged in shared memory; it must fit) or
     ``"global"`` (device memory).  Returns the walked buffer."""
     n_ops = _check_chain("probe_scalar", rows, 2, buf, n_chains, space)
+    if space == "shared" and buf.numel() * 4 > SHARED_LIMIT:
+        raise ValueError(
+            f"buf of {buf.numel() * 4} bytes does not fit the "
+            f"{SHARED_LIMIT} bytes of shared memory a block can use")
     if not _on_card("probe_scalar", buf):
         return probe_scalar_plain(rows, buf, n_chains)
     out = buf.clone()
@@ -146,10 +157,25 @@ def probe_chain_body(meta, buf, n_chains: int, mode: str = "realign",
     ``"roll"`` are this) or the word-wise sum of the two rows
     (``"minimal"``), keeps bytes [off, min(off + 64, 512)), zeroes the rest
     and stores the row to dst.  Row numbers are clamped into buf, src + 1
-    too.  ``space`` as for ``probe_scalar``.  Returns the walked buffer."""
+    too.  The chains must own disjoint rows (then any order of the chains
+    gives the result of the plain version's lockstep); the kernel walks
+    each chain in a thread block of its own.  ``space``: where it walks,
+    ``"global"`` (device memory) or ``"shared"``: chain c's region, rows
+    [c * r, (c + 1) * r) with r = n_rows // n_chains, staged in its block's
+    shared memory, where the scripts' inputs keep every row of chain c.
+    Each region must fit (``body_shared_bytes``, else ValueError); a row
+    outside its chain's region is walked in device memory, slower but as
+    exact.  Returns the walked buffer."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {tuple(MODES)}")
     n_ops = _check_chain("probe_chain_body", meta, 3, buf, n_chains, space)
+    if space == "shared" and (body_shared_bytes(buf.shape[0], n_chains)
+                              > SHARED_LIMIT):
+        raise ValueError(
+            f"a chain's region of {buf.shape[0] // n_chains} rows takes "
+            f"{body_shared_bytes(buf.shape[0], n_chains)} bytes with its "
+            f"flags, more than the {SHARED_LIMIT} bytes of shared memory a "
+            f"block can use")
     if not _on_card("probe_chain_body", buf):
         return probe_chain_body_plain(meta, buf, n_chains, mode)
     out = buf.clone()
@@ -269,8 +295,7 @@ def _check_ablate(counts, ops, arena, variant, out_base_row, chain_rows):
     if ops.shape[2] != 3 or counts.numel() != nchain:
         raise ValueError("ops must be [nchain, cap, 3], counts [nchain]")
     if not 1 <= nchain <= MAX_CHAINS:
-        raise ValueError(f"ablate_exec walks 1..{MAX_CHAINS} chains, one "
-                         f"warp each")
+        raise ValueError(f"ablate_exec walks 1..{MAX_CHAINS} chains")
     if chain_rows is None:
         chain_rows = (arena.shape[0] - out_base_row - 2) // nchain
     if (arena.shape[1] != ROW_WORDS or out_base_row < 0 or chain_rows < 1
@@ -296,10 +321,17 @@ def ablate_exec(counts, ops, arena, variant: str = "full",
     rows left but the last two, shared out evenly).  Every chain appends its records to its
     region, in the given ``variant`` (``csrc/ablate.cu`` defines the five).
     A read of the chain's own region sees the chain's stores, every other
-    read sees the input arena.  Raises when a chain's bytes exceed its
-    region.  Returns the written arena."""
+    read sees the input arena, so the chains are independent: the kernel
+    walks each in a thread block of its own, its region staged in shared
+    memory.  Raises when a chain's bytes exceed its region, and when a
+    region exceeds ``SHARED_LIMIT``.  Returns the written arena."""
     nchain, cap, chain_rows = _check_ablate(counts, ops, arena, variant,
                                             out_base_row, chain_rows)
+    if chain_rows * ROW_B > SHARED_LIMIT:
+        raise ValueError(
+            f"a chain's region of {chain_rows} rows ({chain_rows * ROW_B} "
+            f"bytes) does not fit the {SHARED_LIMIT} bytes of shared memory "
+            f"a block can use")
     if not _on_card("ablate_exec", arena):
         return ablate_exec_plain(counts, ops, arena, variant, out_base_row,
                                  chain_rows)

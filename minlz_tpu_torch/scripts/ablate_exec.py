@@ -8,7 +8,8 @@ five variants:
   norealign  moves take their bytes from an aligned row (no byte shift)
   nomask     every slot stores a whole 512-byte window (no byte mask)
   minimal    one whole-row load and store per record
-One warp walks one chain; all chains share one SM.
+A thread block walks each chain, its region of --chain-rows rows staged in
+shared memory; the grid has a block a chain.
 
     python -m minlz_tpu_torch.scripts.ablate_exec [--device cuda|cpu]
         [--ops 4096] [--chains 8 16] [--chain-rows 128] [--iters 3]
@@ -34,8 +35,10 @@ def run(variant, nchain=8, ops_per_chain=4096, chain_rows=128, device="cuda",
         probe.ablate_exec, (counts, ops, arena, variant, 8, chain_rows),
         iters)
     total = nchain * ops_per_chain
-    print(f"{variant:10s} nchain={nchain:2d}: "
-          f"{t * 1e9 / ops_per_chain:7.1f} ns/record of a chain, "
+    # A block a chain (csrc/ablate.cu, launch).
+    print(f"{variant:10s} nchain={nchain:2d} grid={nchain} blocks: "
+          f"{t * 1e3:.4f} ms, {t * 1e9 / ops_per_chain:7.1f} ns/record of a "
+          f"chain, "
           f"{t * 1e9 / total:6.1f} ns/op  [{card(device)}]", flush=True)
 
 
@@ -47,7 +50,8 @@ def main(argv=None) -> int:
                     help="records per chain")
     ap.add_argument("--chains", type=int, nargs="+", default=[8, 16])
     ap.add_argument("--chain-rows", type=int, default=128,
-                    help="512-byte rows of each chain's region")
+                    help="512-byte rows of each chain's region (at most "
+                         "454: it is staged in shared memory)")
     opt = ap.parse_args(argv)
     for variant in probe.VARIANTS:
         for nchain in opt.chains:

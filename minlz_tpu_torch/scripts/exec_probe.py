@@ -4,8 +4,11 @@
            blocks: records per MiB, bytes per record, ns per record.
   body     ``ops.probe.probe_chain_body``: per step two dependent row loads,
            a window realigned at a byte offset, a 64-byte mask, one row
-           store; 1 and 8 to 32 chains, in shared memory and in device
-           memory.
+           store; 1 and 8 to 32 chains, a thread block each, in shared
+           memory on a buffer of --shared-rows rows (the JAX script's 4096:
+           each block stages its chain's region of rows // chains rows; a
+           chain count whose region does not fit a block is reported and
+           not walked) and in device memory on a buffer of --rows rows.
   gather   rounds of torch indexing over 1 Mi elements: what a round of
            pointer jumping costs.
   scatter  a batched per-lane scatter (the sort-free compaction candidate).
@@ -13,7 +16,7 @@
     python -m minlz_tpu_torch.scripts.exec_probe [all|phases|body|gather|
         scatter] [--device cuda|cpu] [--blocks 4] [--block-kb 1024]
         [--executor fast|scheduled] [--steps 4096] [--rows 4096]
-        [--shared-rows 256] [--n 1048576] [--iters 3]
+        [--shared-rows 4096] [--n 1048576] [--iters 3]
 """
 
 from __future__ import annotations
@@ -64,16 +67,19 @@ def phase_breakdown(n_blocks=4, device="cuda", iters=3, block_size=MB,
 
 def bench_chain_body(n_ops=4096, n_chains=16, rows=4096, mode="realign",
                      space="global", device="cuda", iters=3):
-    """ns per step of ``probe_chain_body``."""
+    """ns per step of ``probe_chain_body`` on a buffer of ``rows`` rows."""
     meta, buf = (torch.from_numpy(a).to(device)
                  for a in probe.chain_body_inputs(n_ops, n_chains, rows,
                                                   fill=True))
     t, _ = timed_device(probe.probe_chain_body,
                         (meta, buf, n_chains, mode, space), iters)
     total = n_ops * n_chains
+    # A block a chain (csrc/probe.cu, launch_body).
     print(f"chainbody mode={mode} chains={n_chains} space={space} "
-          f"rows={rows}: {t * 1e9 / n_ops:.1f} ns/step of a chain, "
-          f"{t * 1e9 / total:.1f} ns/op  [{card(device)}]", flush=True)
+          f"rows={rows} grid={n_chains} blocks: {t * 1e3:.4f} ms, "
+          f"{t * 1e9 / n_ops:.1f} ns/step of a "
+          f"chain, {t * 1e9 / total:.1f} ns/op  [{card(device)}]",
+          flush=True)
 
 
 def bench_gather_rounds(n=1 << 20, rounds=4, device="cuda", iters=3):
@@ -126,7 +132,10 @@ def main(argv=None) -> int:
     ap.add_argument("--executor", choices=ec.EXECUTORS, default="fast")
     ap.add_argument("--steps", type=int, default=4096)
     ap.add_argument("--rows", type=int, default=4096)
-    ap.add_argument("--shared-rows", type=int, default=256)
+    ap.add_argument("--shared-rows", type=int, default=4096,
+                    help="rows of the buffer in the shared space (each "
+                         "chain's region of rows // chains must fit a "
+                         "block's shared memory)")
     ap.add_argument("--n", type=int, default=1 << 20,
                     help="elements of the gather rounds")
     opt = ap.parse_args(argv)
@@ -139,6 +148,14 @@ def main(argv=None) -> int:
             for space, rows in (("shared", opt.shared_rows),
                                 ("global", opt.rows)):
                 for chains in BODY_CHAINS:
+                    need = probe.body_shared_bytes(rows, chains)
+                    if space == "shared" and need > probe.SHARED_LIMIT:
+                        print(f"chainbody mode={mode} chains={chains} "
+                              f"space=shared rows={rows}: not walked, a "
+                              f"region of {rows // chains} rows takes "
+                              f"{need} bytes, more than a block's "
+                              f"{probe.SHARED_LIMIT}", flush=True)
+                        continue
                     bench_chain_body(opt.steps, chains, rows, mode, space,
                                      dev, it)
     if opt.which in ("all", "gather"):

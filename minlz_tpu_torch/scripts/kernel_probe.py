@@ -37,7 +37,7 @@ def bench_scalar(n_ops=8192, n_chains=1, rows=4096, space="global",
     t, _ = timed_device(probe.probe_scalar, (rows_t, buf, n_chains, space),
                         iters)
     total = n_ops * n_chains
-    print(f"A chains={n_chains} space={space} rows={rows}: "
+    print(f"A chains={n_chains} space={space} rows={rows} grid=1 block: "
           f"{t * 1e9 / n_ops:.1f} ns/step of a chain, "
           f"{t * 1e9 / total:.1f} ns/op ({total / t / 1e6:.1f} M ops/s)  "
           f"[{card(device)}]", flush=True)
@@ -50,7 +50,8 @@ def bench_gather(n_iters=512, tbl_vregs=1, device="cuda", iters=3):
     t, _ = timed_device(probe.probe_gather, (tbl, idx), iters)
     total = n_iters * probe.GATHER_ELEMS
     print(f"B tbl={tbl_vregs * probe.GATHER_ELEMS} words "
-          f"({tbl_vregs * 4}KiB): {t * 1e9 / total:.3f} ns/elem "
+          f"({tbl_vregs * 4}KiB) grid=1 block: "
+          f"{t * 1e9 / total:.3f} ns/elem "
           f"({total / t / 1e9:.2f} G elem/s)  [{card(device)}]", flush=True)
 
 
@@ -59,7 +60,8 @@ def bench_taa(n_iters=2048, device="cuda", iters=3):
     a, idx = _to(device, *probe.taa_inputs(n_iters, wrap=True))
     t, _ = timed_device(probe.probe_taa, (a, idx), iters)
     total = n_iters * probe.GATHER_ELEMS
-    print(f"C in-row gather by shuffles: {t * 1e9 / total:.3f} ns/elem "
+    print(f"C in-row gather by shuffles, grid=1 block: "
+          f"{t * 1e9 / total:.3f} ns/elem "
           f"({total / t / 1e9:.2f} G elem/s)  [{card(device)}]", flush=True)
 
 

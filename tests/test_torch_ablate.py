@@ -145,3 +145,44 @@ def test_counts_and_checks():
         probe.ablate_exec(T(counts), T(ops), T(arena[:9]), "full")
     with pytest.raises(ValueError):
         probe.ablate_exec(T(counts), T(ops[:, :, :2].copy()), T(arena))
+
+
+@pytest.mark.parametrize("variant", probe.VARIANTS)
+def test_chains_walked_alone_merge_to_the_lockstep_walk(variant):
+    """The premise of a block a chain: on the scripts' inputs (8 chains,
+    regions of 128 rows) each chain walked alone by the plain version, its
+    region where it is in the lockstep walk, changes only its region, and
+    the regions merged equal the lockstep walk."""
+    nchain, n, rows = 8, 256, 128
+    counts, ops, arena = probe.ablate_inputs(nchain, n, rows, fill=True)
+    want = probe.ablate_exec_plain(T(counts), T(ops), T(arena), variant,
+                                   chain_rows=rows).numpy()
+    merged = arena.copy()
+    for ch in range(nchain):
+        base = 8 + ch * rows
+        alone = probe.ablate_exec_plain(
+            T(counts[ch:ch + 1].copy()), T(ops[ch:ch + 1].copy()), T(arena),
+            variant, out_base_row=base, chain_rows=rows).numpy()
+        outside = np.ones(arena.shape[0], bool)
+        outside[base:base + rows] = False
+        np.testing.assert_array_equal(alone[outside], arena[outside])
+        merged[base:base + rows] = alone[base:base + rows]
+    np.testing.assert_array_equal(merged, want)
+    assert (want != arena).any(axis=1).sum() >= nchain
+
+
+def test_regions_must_fit_shared_memory():
+    """A region is staged in one block's shared memory: 454 rows fit, 455
+    raise, on any device."""
+    assert 454 * 512 <= probe.SHARED_LIMIT < 455 * 512
+    for rows in (454, 455):
+        counts, ops, arena = probe.ablate_inputs(1, 20, rows, fill=True)
+        args = (T(counts), T(ops), T(arena), "full")
+        if rows == 454:
+            np.testing.assert_array_equal(
+                probe.ablate_exec(*args, chain_rows=rows).numpy(),
+                probe.ablate_exec_plain(*args, chain_rows=rows).numpy())
+        else:
+            with pytest.raises(ValueError, match="region of 455 rows"):
+                probe.ablate_exec(*args, chain_rows=rows)
+            probe.ablate_exec_plain(*args, chain_rows=rows)

@@ -185,3 +185,27 @@ def test_sanitize_reports_what_it_could_not_check(tmp_path, monkeypatch,
                                         str(tmp_path / "logs"))
         assert got == status and counts is None and "rc 97" in text
         assert (tmp_path / "logs" / "sanitize_memcheck.log").exists()
+
+
+def test_exec_probe_body_walks_the_chain_counts_whose_region_fits(capsys):
+    """exec_probe body's shared sweep at its default buffer, the JAX
+    script's 4096 rows: 16 and 32 chains (256 and 128 rows a block) are
+    walked with a block a chain; 1 and 8 do not fit a block and are
+    reported, not walked."""
+    from minlz_tpu_torch.scripts import exec_probe
+
+    rc = exec_probe.main(["body", "--device", "cpu", "--iters", "1",
+                          "--steps", "4", "--rows", "128"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    for mode in exec_probe.BODY_MODES:
+        for c in (1, 8):
+            assert (f"chainbody mode={mode} chains={c} space=shared "
+                    f"rows=4096: not walked, a region of {4096 // c} rows"
+                    in out)
+        for c in (16, 32):
+            assert (f"chainbody mode={mode} chains={c} space=shared "
+                    f"rows=4096 grid={c} blocks:" in out)
+        for c in exec_probe.BODY_CHAINS:
+            assert (f"chainbody mode={mode} chains={c} space=global "
+                    f"rows=128 grid={c} blocks:" in out)

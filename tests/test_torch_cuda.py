@@ -527,6 +527,67 @@ def test_probe_chain_body_kernel_matches_plain(space, rows):
                   probe.probe_chain_body_plain(meta, buf, n_chains, mode))
 
 
+@pytest.mark.parametrize("n_chains", [16, 32])
+def test_probe_chain_body_kernel_at_4096_rows_in_shared_memory(n_chains):
+    """The JAX script's 4096 rows in the shared space: a block a chain,
+    each staging its region of 256 or 128 rows."""
+    from minlz_tpu_torch.ops import probe
+
+    meta, buf = _cuda(*probe.chain_body_inputs(300, n_chains, 4096,
+                                               fill=True))
+    for mode in ("minimal", "realign"):
+        _same(probe.probe_chain_body(meta, buf, n_chains, mode, "shared"),
+              probe.probe_chain_body_plain(meta, buf, n_chains, mode))
+
+
+@pytest.mark.parametrize("space", ["shared", "global"])
+@pytest.mark.parametrize("n_chains,rows", [(4, 64), (5, 83), (16, 4096)])
+def test_probe_chain_body_kernel_off_its_region(space, n_chains, rows):
+    """Chains that own disjoint rows but stray into the next chain's region
+    (and past the last region): those rows are walked in device memory and
+    stay exact."""
+    from minlz_tpu_torch.ops import probe
+
+    from test_torch_probe import strayed
+
+    meta, buf = probe.chain_body_inputs(300, n_chains, rows, fill=True)
+    meta, buf = _cuda(strayed(meta, rows, n_chains), buf)
+    for mode in ("minimal", "realign"):
+        _same(probe.probe_chain_body(meta, buf, n_chains, mode, space),
+              probe.probe_chain_body_plain(meta, buf, n_chains, mode))
+
+
+@pytest.mark.parametrize("space", ["shared", "global"])
+def test_probe_chain_body_kernel_clamps_wild_rows(space):
+    """Row numbers below 0 in chain 0 and past the buffer in the last chain
+    (each clamps into its own chain's rows), offsets of any sign."""
+    from minlz_tpu_torch.ops import probe
+
+    n_chains, rows, n_ops = 4, 96, 200
+    meta, buf = probe.chain_body_inputs(n_ops, n_chains, rows, fill=True)
+    steps = meta.reshape(n_chains, n_ops, 3)
+    g = np.random.default_rng(5)
+    steps[0, ::7, :2] = g.integers(-(1 << 31), 0, (len(steps[0, ::7]), 2))
+    steps[-1, ::5, :2] = g.integers(rows, 1 << 31, (len(steps[-1, ::5]), 2))
+    steps[:, ::3, 2] = g.integers(-(1 << 31), 1 << 31, (n_chains,
+                                                        len(steps[0, ::3])))
+    meta, buf = _cuda(steps.reshape(-1).copy(), buf)
+    for mode in ("minimal", "realign"):
+        _same(probe.probe_chain_body(meta, buf, n_chains, mode, space),
+              probe.probe_chain_body_plain(meta, buf, n_chains, mode))
+
+
+def test_probe_chain_body_wrapper_rejects_on_the_card():
+    from minlz_tpu_torch.ops import probe
+
+    meta, buf = _cuda(*probe.chain_body_inputs(8, 8, 4096, fill=True))
+    with pytest.raises(ValueError, match="region of 512 rows"):
+        probe.probe_chain_body(meta, buf, 8, space="shared")
+    counts, ops, arena = _cuda(*probe.ablate_inputs(1, 20, 455, fill=True))
+    with pytest.raises(ValueError, match="region of 455 rows"):
+        probe.ablate_exec(counts, ops, arena, chain_rows=455)
+
+
 def test_probe_gather_kernel_matches_plain():
     from minlz_tpu_torch.ops import probe
 
@@ -562,6 +623,20 @@ def test_ablate_kernel_matches_plain(variant):
                                ops[..., 1])
         counts[-1] = n // 2
         args = _cuda(counts, ops, arena)
+        _same(probe.ablate_exec(*args, variant, chain_rows=chain_rows),
+              probe.ablate_exec_plain(*args, variant,
+                                      chain_rows=chain_rows))
+
+
+@pytest.mark.parametrize("variant", ["full", "onewin", "norealign", "nomask",
+                                     "minimal"])
+def test_ablate_kernel_at_16_chains(variant):
+    """The script's second chain count, regions of 128 rows (64 KiB) and of
+    454 rows (the most a block's shared memory holds)."""
+    from minlz_tpu_torch.ops import probe
+
+    for nchain, n, chain_rows in ((16, 1500, 128), (2, 600, 454)):
+        args = _cuda(*probe.ablate_inputs(nchain, n, chain_rows, fill=True))
         _same(probe.ablate_exec(*args, variant, chain_rows=chain_rows),
               probe.ablate_exec_plain(*args, variant,
                                       chain_rows=chain_rows))

@@ -191,3 +191,161 @@ def test_timed_device_on_the_cpu():
     assert t > 0 and r.tolist() == [1, 2, 3, 4] and len(calls) == 3 + 8
     assert tbench.card("cpu") == "cpu"
     assert tbench.make_corpus(1000) == tbench.make_corpus(2000)[:1000]
+
+
+# ---- the chain body a block a chain: what the kernel's design relies on ----
+
+def chain_steps(meta, n_chains):
+    """[n_chains, n_ops, 3] int64 of meta."""
+    return meta.reshape(n_chains, -1, 3).astype(np.int64)
+
+
+def strayed(meta, rows, n_chains):
+    """meta with every row number moved on by half a region, modulo rows:
+    the chains still own disjoint rows, but half of each chain's rows lie
+    in the next chain's region."""
+    shift = rows // n_chains // 2
+    out = chain_steps(meta, n_chains).copy()
+    out[..., :2] = (out[..., :2] + shift) % rows
+    return out.astype(np.int32).reshape(-1)
+
+
+def body_step(r0, r1, off, mode):
+    """One step of the chain body in numpy: the window, then the mask."""
+    if probe.MODES[mode]:
+        w = np.concatenate([r0, r1])[off >> 2:(off >> 2) + 128]
+    else:
+        w = (r0.astype(np.int64) + r1).astype(np.uint32).view(np.int32)
+    keep = np.zeros(512, bool)
+    keep[off:min(off + 64, 512)] = True
+    return w & np.where(keep, 0xFF, 0).astype(np.uint8).view(np.int32)
+
+
+def block_model(meta, buf, n_chains, mode):
+    """The shared-space kernel's bookkeeping in numpy, on the schedule that
+    is hardest for it: every block stages its chain's region, then the
+    blocks walk one after another in reverse order, then every block writes
+    back.  A block reads and stores the rows of its region in its stage and
+    every other row in the buffer, and writes back the region rows it
+    stored."""
+    rows = buf.shape[0]
+    r = rows // n_chains
+    out = buf.copy()
+    steps = chain_steps(meta, n_chains)
+    stages = [out[c * r:(c + 1) * r].copy() for c in range(n_chains)]
+    stored = [np.zeros(r, bool) for _ in range(n_chains)]
+    for c in reversed(range(n_chains)):
+        lo, stage = c * r, stages[c]
+
+        def row(i):
+            return (stage[i - lo] if lo <= i < lo + r else out[i]).copy()
+
+        for src, dst, off in steps[c]:
+            src = min(max(src, 0), rows - 1)
+            dst = min(max(dst, 0), rows - 1)
+            val = body_step(row(src), row(min(src + 1, rows - 1)),
+                            int(off) & 511, mode)
+            if lo <= dst < lo + r:
+                stage[dst - lo] = val
+                stored[c][dst - lo] = True
+            else:
+                out[dst] = val
+    for c in range(n_chains):
+        out[c * r:(c + 1) * r][stored[c]] = stages[c][stored[c]]
+    return out
+
+
+@pytest.mark.parametrize("mode", ["minimal", "realign"])
+def test_chain_body_chains_keep_to_their_regions(mode):
+    """On the scripts' inputs (16 chains over 4096 rows) every row of chain
+    c lies in its region; each chain walked alone by the plain version
+    changes only its region and reads nothing outside it, and the regions
+    merged equal the lockstep walk."""
+    n_chains, rows, n_ops = 16, 4096, 40
+    r = rows // n_chains
+    meta, buf = probe.chain_body_inputs(n_ops, n_chains, rows, fill=True)
+    steps = chain_steps(meta, n_chains)
+    lo = (np.arange(n_chains) * r)[:, None]
+    assert ((steps[..., 0] >= lo) & (steps[..., 0] + 1 < lo + r)).all()
+    assert ((steps[..., 1] >= lo) & (steps[..., 1] < lo + r)).all()
+    want = probe.probe_chain_body_plain(T(meta), T(buf), n_chains,
+                                        mode).numpy()
+    other = probe._fill(buf.shape, 21)
+    merged = buf.copy()
+    for c in range(n_chains):
+        region = slice(c * r, (c + 1) * r)
+        alone = probe.probe_chain_body_plain(
+            T(steps[c].astype(np.int32).reshape(-1)), T(buf), 1,
+            mode).numpy()
+        outside = np.ones(rows, bool)
+        outside[region] = False
+        np.testing.assert_array_equal(alone[outside], buf[outside])
+        # Another buffer around the region: the region walks the same.
+        around = other.copy()
+        around[region] = buf[region]
+        np.testing.assert_array_equal(
+            probe.probe_chain_body_plain(
+                T(steps[c].astype(np.int32).reshape(-1)), T(around), 1,
+                mode).numpy()[region], alone[region])
+        merged[region] = alone[region]
+    np.testing.assert_array_equal(merged, want)
+    assert (want != buf).any(axis=1).sum() > n_chains
+    np.testing.assert_array_equal(block_model(meta, buf, n_chains, mode),
+                                  want)
+
+
+@pytest.mark.parametrize("mode", ["minimal", "realign"])
+@pytest.mark.parametrize("n_chains,rows", [(4, 64), (5, 83)])
+def test_chain_body_rows_off_their_region_stay_exact(mode, n_chains, rows):
+    """Chains that own disjoint rows but stray into the next chain's region
+    (and, at 83 rows, onto the rows past the last region): each chain
+    walked alone and merged by the rows it stored, and the kernel's
+    bookkeeping (``block_model``), equal the lockstep walk."""
+    meta, buf = probe.chain_body_inputs(30, n_chains, rows, fill=True)
+    meta = strayed(meta, rows, n_chains)
+    steps = chain_steps(meta, n_chains)
+    r = rows // n_chains
+    own = np.arange(n_chains)[:, None]
+    assert (steps[..., 1] // r != own).any()        # stores off the region
+    # At 83 rows also the three rows past the last region.
+    assert (steps[..., :2] >= n_chains * r).any() == bool(rows % n_chains)
+    touched = [set(s[:, :2].reshape(-1)) | set(np.minimum(s[:, 0] + 1,
+                                                          rows - 1))
+               for s in steps]
+    for a in range(n_chains):
+        for b in range(a):
+            assert not touched[a] & touched[b]      # disjoint rows
+    want = probe.probe_chain_body_plain(T(meta), T(buf), n_chains,
+                                        mode).numpy()
+    merged = buf.copy()
+    for c in range(n_chains):
+        alone = probe.probe_chain_body_plain(
+            T(steps[c].astype(np.int32).reshape(-1)), T(buf), 1,
+            mode).numpy()
+        stored = np.unique(steps[c, :, 1])
+        merged[stored] = alone[stored]
+    np.testing.assert_array_equal(merged, want)
+    np.testing.assert_array_equal(block_model(meta, buf, n_chains, mode),
+                                  want)
+
+
+def test_chain_body_shared_space_checks_each_region():
+    """The shared space takes a buffer whose every region fits a block
+    (with its flag bytes), not a buffer that fits one block."""
+    meta, buf = probe.chain_body_inputs(8, 16, 4096, fill=True)
+    assert probe.body_shared_bytes(4096, 16) == 256 * 512 + 256
+    assert probe.body_shared_bytes(4096, 32) == 128 * 512 + 128
+    np.testing.assert_array_equal(
+        probe.probe_chain_body(T(meta), T(buf), 16, space="shared").numpy(),
+        probe.probe_chain_body_plain(T(meta), T(buf), 16).numpy())
+    meta8, _ = probe.chain_body_inputs(8, 8, 4096, fill=True)
+    with pytest.raises(ValueError, match="region of 512 rows"):
+        probe.probe_chain_body(T(meta8), T(buf), 8, space="shared")
+    probe.probe_chain_body(T(meta8), T(buf), 8, space="global")
+    assert (probe.body_shared_bytes(453, 1) <= probe.SHARED_LIMIT
+            < probe.body_shared_bytes(454, 1))
+    one = np.array([0, 1, 7], np.int32)
+    probe.probe_chain_body(T(one), T(buf[:453].copy()), 1, space="shared")
+    with pytest.raises(ValueError, match="region of 454 rows"):
+        probe.probe_chain_body(T(one), T(buf[:454].copy()), 1,
+                               space="shared")
