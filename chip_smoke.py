@@ -15,7 +15,12 @@ decode_blocks_chained(executor="scheduled"), the append-only road.  One
 decode_block_whole.  The five probe kernels (ops/probe.py) are held against
 their plain versions at their scripts' default sizes (the chain body also in
 the shared space at the JAX script's 4096 rows, 16 and 32 chains; it and the
-ablation launch a thread block a chain) and then driven through
+ablation launch a thread block a chain; probe_scalar walks 4096 rows in
+both spaces at 1 to 16 chains, a block or a cluster of blocks a chain, and
+with strayed rows at 16; probe_gather runs on clusters of blocks across the
+card, also at a ragged count; both are timed alone, bare launches queued,
+beside their wrappers: "time probe_scalar" and "time probe_gather" lines,
+each with the grid and cluster launched) and then driven through
 the port's measurement scripts (kernel_probe, exec_probe body, ablate_exec),
 whose lines are printed as "time probe ..."; minlz_tpu_torch.bench.main runs
 at 8 MiB and profile_decode prints each decode kernel's time alone beside its
@@ -104,12 +109,20 @@ PARSE_LANES = 2048       # lanes of the "time parse" inputs: the corpus batch's
 PLAIN_LANES = 64         # lanes of them held against the plain version
 PROBE_SPACES = (("shared", 256), ("global", 4096))
 SCALAR_STEPS, SCALAR_CHAINS = 8192, (1, 2, 4, 8, 16)
+# probe_scalar walks the JAX script's 4096 rows in both spaces: in the
+# shared space a block a chain at 16 chains and a cluster of 2 to 16 blocks
+# a chain below.  Its floor is a chain of one-chain steps in one block's
+# shared memory (256 rows: the range executors' stage) or in device memory,
+# timed in the same run.
+SCALAR_SPACES = (("shared", 4096), ("global", 4096))
+SCALAR_FLOOR_ROWS = {"shared": 256, "global": 4096}
 BODY_STEPS, BODY_CHAINS = 4096, (1, 8, 16, 32)
 # exec_probe body's shared sweep: the JAX script's 4096 rows at each of
 # BODY_CHAINS whose region fits a block (16 and 32 chains: 256 and 128
 # rows a block, which the one-block design refused; 1 and 8 do not fit).
 BODY_SHARED_ROWS = 4096
 GATHER_TABLES = ((512, 1), (512, 2), (512, 4), (256, 9))  # (iters, 4 KiB)
+GATHER_RAGGED = (257, 9)    # a count that is no multiple of the grid
 TAA_ITERS = 2048
 ABLATE_RECORDS, ABLATE_CHAINS, ABLATE_ROWS = 4096, (8, 16), 128
 
@@ -396,14 +409,25 @@ def run_script(main_fn, argv, prefix):
         raise AssertionError(f"{prefix.strip()} {argv} returned {rc}")
 
 
+def strayed_steps(steps, rows: int, n_chains: int):
+    """probe_scalar's (src, dst) step list with every row number moved on
+    by half a region, modulo rows: the chains still own disjoint rows, but
+    half of each chain's rows lie in the next chain's region."""
+    out = steps.reshape(n_chains, -1, 2).astype(np.int64)
+    out = (out + rows // n_chains // 2) % rows
+    return out.astype(np.int32).reshape(-1)
+
+
 def compare_probes(dev, card):
     """Each probe kernel against its plain version on the card, the whole
     buffer, at its script's default size, on seeded non-zero data.  Returns
     (max abs err, kernel ms, plain ms, bound) per kernel; the times and the
-    bound are of the largest configuration of each.  The chain body and the
-    ablation run a thread block a chain across the card, so their bound is
-    the card's (``bound``); the other three run one block, and theirs is
-    one SM's (``bound_one_sm``)."""
+    bound are of the largest configuration of each.  probe_scalar, the
+    chain body and the ablation run a thread block (or a cluster) a chain
+    across the card, probe_gather about a block an SM: their bound is the
+    card's (``bound``); probe_taa runs one block, and its bound is one
+    SM's (``bound_one_sm``).  probe_scalar and probe_gather are also timed
+    alone (bare launches queued, ``queued_ms``) beside their wrappers."""
     from minlz_tpu_torch.ops import probe
 
     def to_dev(arrays):
@@ -437,17 +461,48 @@ def compare_probes(dev, card):
                  4 * meta.numel() + 8 * buf.numel(),
                  6 * 128 * BODY_STEPS * c, one_sm=False)
 
-    for space, rows in PROBE_SPACES:
+    floor_ns = {}
+    for space, rows in SCALAR_FLOOR_ROWS.items():
+        steps, buf = to_dev(probe.scalar_inputs(SCALAR_STEPS, 1, rows,
+                                                fill=True))
+        plan = probe.scalar_plan(rows, 1, space)
+        floor_ns[space] = queued_ms(lambda: probe.launch_scalar(
+            steps, buf, 1, space, plan)) * 1e6 / SCALAR_STEPS
+    for space, rows in SCALAR_SPACES:
         for c in SCALAR_CHAINS:
-            steps, buf = to_dev(probe.scalar_inputs(SCALAR_STEPS, c, rows,
-                                                    fill=True))
-            # Step list and buffer in, buffer out; one add per word moved.
-            held("probe_scalar", f"{c} chains, {space}",
-                 lambda: probe.probe_scalar(steps, buf, c, space),
-                 lambda: probe.probe_scalar_plain(steps, buf, c),
-                 (space, c) == ("global", SCALAR_CHAINS[-1]),
-                 4 * steps.numel() + 8 * buf.numel(),
-                 128 * SCALAR_STEPS * c)
+            stray = (False, True) if c == SCALAR_CHAINS[-1] else (False,)
+            for strays in stray:
+                steps, buf = probe.scalar_inputs(SCALAR_STEPS, c, rows,
+                                                 fill=True)
+                if strays:
+                    steps = strayed_steps(steps, rows, c)
+                steps, buf = to_dev((steps, buf))
+                label = (f"{c} chains x {rows} rows, {space}"
+                         f"{', strayed' if strays else ''}")
+                wrapper = lambda: probe.probe_scalar(steps, buf, c, space)
+                # Step list and buffer in, buffer out; one add per word
+                # moved.
+                n_bytes = 4 * steps.numel() + 8 * buf.numel()
+                held("probe_scalar", label, wrapper,
+                     lambda: probe.probe_scalar_plain(steps, buf, c),
+                     (space, c, strays) == ("shared", SCALAR_CHAINS[-1],
+                                            False),
+                     n_bytes, 128 * SCALAR_STEPS * c, one_sm=False)
+                plan = probe.LAUNCHED["probe_scalar"]
+                work = buf.clone()
+                alone = queued_ms(lambda: probe.launch_scalar(
+                    steps, work, c, space, plan))
+                log(f"time probe_scalar {SCALAR_STEPS} steps x {label}: "
+                    f"grid {plan.grid} cluster {plan.cluster} (share "
+                    f"{plan.share_rows} rows): {cuda_ms(wrapper):.4f} ms "
+                    f"through the wrapper ({host_us(wrapper):.1f} us of "
+                    f"host time a call), {alone:.4f} ms alone "
+                    f"({alone * 1e6 / SCALAR_STEPS:.1f} ns a step); floor "
+                    f"{SCALAR_STEPS} x {floor_ns[space]:.1f} ns = "
+                    f"{SCALAR_STEPS * floor_ns[space] * 1e-6:.4f} ms (one "
+                    f"chain, {SCALAR_FLOOR_ROWS[space]} rows, {space}); "
+                    f"bound {bound(n_bytes, 0)[0]:.4f} ms  [{card}]")
+    for space, rows in PROBE_SPACES:
         for c in BODY_CHAINS:
             held_body(rows, c, space, ("global", BODY_CHAINS[-1], "realign"))
     shared_chains = [c for c in BODY_CHAINS
@@ -456,22 +511,36 @@ def compare_probes(dev, card):
     for c in shared_chains:
         held_body(BODY_SHARED_ROWS, c, "shared", None)
     log(f"probe_scalar == plain version (tolerance 0, whole buffer) at "
-        f"{SCALAR_STEPS} steps x {SCALAR_CHAINS} chains, and "
-        f"probe_chain_body at {BODY_STEPS} steps x {BODY_CHAINS} chains x "
-        f"(minimal, realign), each on {PROBE_SPACES}, and in the shared "
-        f"space at {BODY_SHARED_ROWS} rows x {shared_chains} chains "
-        f"(grid: a block a chain): compared and timed at the same, full "
-        f"size")
-    for iters, vregs in GATHER_TABLES:
+        f"{SCALAR_STEPS} steps x {SCALAR_CHAINS} chains, each on "
+        f"{SCALAR_SPACES}, with strayed rows at {SCALAR_CHAINS[-1]} "
+        f"(grid: a block or a cluster a chain), and probe_chain_body at "
+        f"{BODY_STEPS} steps x {BODY_CHAINS} chains x (minimal, realign), "
+        f"each on {PROBE_SPACES}, and in the shared space at "
+        f"{BODY_SHARED_ROWS} rows x {shared_chains} chains (grid: a block "
+        f"a chain): compared and timed at the same, full size")
+    for iters, vregs in GATHER_TABLES + (GATHER_RAGGED,):
         tbl, idx = to_dev(probe.gather_inputs(iters, vregs, wrap=True))
-        # Table, indices and sums through L2; a 4-byte shared-memory read
-        # per gather.
-        held("probe_gather", f"{vregs * 1024} words",
-             lambda: probe.probe_gather(tbl, idx),
-             lambda: probe.probe_gather_plain(tbl, idx),
-             vregs == GATHER_TABLES[-1][1],
-             4 * (tbl.numel() + idx.numel() + 1024), 2 * idx.numel(),
-             4 * idx.numel())
+        wrapper = lambda: probe.probe_gather(tbl, idx)
+        # Table, indices and sums through L2; two operations a gather.
+        n_bytes = 4 * (tbl.numel() + idx.numel() + 1024)
+        held("probe_gather", f"{iters} x 1024 from {vregs * 1024} words",
+             wrapper, lambda: probe.probe_gather_plain(tbl, idx),
+             (iters, vregs) == GATHER_TABLES[-1], n_bytes, 2 * idx.numel(),
+             one_sm=False)
+        plan = probe.LAUNCHED["probe_gather"]
+        out = torch.empty((8, 128), dtype=torch.int32, device=dev)
+        scratch = torch.empty((plan.grid // plan.cluster, 1024),
+                              dtype=torch.int32, device=dev)
+        bare = lambda: probe.launch_gather(tbl, idx, out, scratch, plan)
+        alone = queued_ms(bare)
+        log(f"time probe_gather {iters} x 1024 gathers from {vregs * 1024} "
+            f"words: grid {plan.grid} cluster {plan.cluster}: "
+            f"{cuda_ms(wrapper):.4f} ms through the wrapper "
+            f"({host_us(wrapper):.1f} us of host time a call), "
+            f"{queued_ms(wrapper):.4f} ms through it queued, {alone:.4f} ms "
+            f"alone ({host_us(bare):.1f} us of host time a bare launch); "
+            f"bound {bound(n_bytes, 2 * idx.numel())[0]:.4f} ms  "
+            f"[{card}]")
     a, idx = to_dev(probe.taa_inputs(TAA_ITERS, wrap=True))
     # Four shuffles, three selects and an add per element.
     held("probe_taa", f"{TAA_ITERS} iterations",
@@ -479,7 +548,9 @@ def compare_probes(dev, card):
          lambda: probe.probe_taa_plain(a, idx), True,
          4 * (a.numel() + idx.numel() + 1024), 8 * idx.numel())
     log(f"probe_gather == plain version (tolerance 0) on tables of "
-        f"{[v * 1024 for _, v in GATHER_TABLES]} words and probe_taa on "
+        f"{[v * 1024 for _, v in GATHER_TABLES]} words and at "
+        f"{GATHER_RAGGED[0]} iterations (grid: clusters of blocks across "
+        f"the card), and probe_taa on "
         f"{TAA_ITERS} x 1024 in-row gathers, int32 sums that wrap")
     for variant in probe.VARIANTS:
         for c in ABLATE_CHAINS:
@@ -1977,15 +2048,21 @@ def main():
         log(f"time after the cli path (torch.profiler has run) {label}: "
             f"{after / BATCH_BLOCKS:.4f} ms/MB, before it "
             f"{before / BATCH_BLOCKS:.4f} ms/MB  [{card}]")
+    from minlz_tpu_torch.ops.probe import gather_plan
+    gather_grid = gather_plan(GATHER_TABLES[-1][0],
+                              GATHER_TABLES[-1][1] * 1024).grid
     shapes = {"parse": "8 x 1 MiB batch, through parse_planned",
               "greedy": "16 x 1 MiB batch, greedy_parse as one call",
               "exec_block": "8 x 1 MiB batch without the clamp",
               "compact_whole": "8 x 1 MiB batch without the clamp",
               "lane_offsets": "8 x 1 MiB batch, the lane counts",
               "probe_scalar": f"{SCALAR_STEPS} steps x "
-                              f"{SCALAR_CHAINS[-1]} chains, device memory",
+                              f"{SCALAR_CHAINS[-1]} chains x "
+                              f"{SCALAR_SPACES[0][1]} rows, shared memory, "
+                              f"grid {SCALAR_CHAINS[-1]} blocks",
               "probe_gather": f"{GATHER_TABLES[-1][0]} x 1024 gathers from "
-                              f"{GATHER_TABLES[-1][1] * 1024} words",
+                              f"{GATHER_TABLES[-1][1] * 1024} words, grid "
+                              f"{gather_grid} blocks",
               "probe_taa": f"{TAA_ITERS} x 1024 in-row gathers",
               "probe_chain_body": f"{BODY_STEPS} steps x {BODY_CHAINS[-1]} "
                                   f"chains, realign, device memory, grid "

@@ -71,14 +71,19 @@ _SIGNATURES = {
     "minlz_greedy": [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P],
     # out[4]: registers, shared bytes, threads, resident blocks a SM
     "minlz_greedy_attrs": [_P],
-    # rows, n_ops, n_chains, n_rows, buf, shared, stream
+    # rows, n_ops, n_chains, n_rows, buf, shared, grid, cluster, share,
+    # smem, stream
     "minlz_probe_scalar": [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
-                           ctypes.c_int, _P],
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, _P],
     # meta, n_ops, n_chains, n_rows, buf, shared, realign, stream
     "minlz_probe_chain_body": [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                _P, ctypes.c_int, ctypes.c_int, _P],
-    # tbl, tbl_n, idx, n_iters, out, stream
-    "minlz_probe_gather": [_P, ctypes.c_int, _P, ctypes.c_int, _P, _P],
+    # tbl, tbl_n, idx, n_iters, out, grid, cluster, smem, scratch, tickets,
+    # stream
+    "minlz_probe_gather": [_P, ctypes.c_int, _P, ctypes.c_int, _P,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P,
+                           _P],
     # a, idx, n_iters, out, stream
     "minlz_probe_taa": [_P, _P, ctypes.c_int, _P, _P],
     # counts, ops, cap, nchain, arena_in, out, n_rows, out_base_row,

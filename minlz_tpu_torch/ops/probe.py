@@ -19,9 +19,14 @@ row 0 only):
 * ``ablate_exec``: ``nchain`` synthetic LZ record chains over one arena, in
   five variants (``csrc/ablate.cu`` defines them).
 
-The first three kernels run in one thread block (one SM); the chain body and
-the ablation run one thread block a chain, each staging its chain's region
-of the buffer or arena in shared memory.
+``probe_taa`` runs in one thread block (one SM).  The chain body, the
+ablation and ``probe_scalar`` run one thread block a chain, each staging its
+chain's region of the buffer or arena in shared memory; ``probe_scalar``
+stages a region that does not fit one block across a thread block cluster
+(``scalar_plan``).  ``probe_gather`` spreads its iterations over clusters of
+blocks across the card and sums their partial sums on the card in the same
+launch (``gather_plan``).  ``LAUNCHED`` keeps the plan of each of those two
+kernels' last launch.
 
 Each wrapper launches its CUDA kernel (``csrc/probe.cu``,
 ``csrc/ablate.cu``) for CUDA tensors and runs its plain torch version, in
@@ -33,6 +38,8 @@ shows something.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -46,7 +53,12 @@ ROW_B = 512
 GATHER_ELEMS = 8 * ROW_WORDS
 # Dynamic shared memory one thread block can use on Hopper.
 SHARED_LIMIT = 232448
-MAX_CHAINS = 32             # probe_scalar: a warp a chain, all in one block
+MAX_CHAINS = 32             # the chain probes walk 1..32 chains
+MAX_CLUSTER = 16            # blocks a cluster; above 8 non-portable
+GATHER_CLUSTER = 8          # probe_gather: blocks a cluster (csrc/probe.cu)
+MAX_GATHER_CLUSTERS = 16    # 128 blocks: about one an SM of the card's 132
+GATHER_ITERS = 2            # iterations a block that gather_plan aims at
+CLUSTER_REFUSED = -1        # csrc/probe.cu: no cluster of that size fits
 SPACES = ("shared", "global")
 # The JAX probe's "taa" and "roll" realign the window in two ways and give
 # the same words: both are "realign" here.
@@ -94,36 +106,109 @@ def _check_chain(name, steps, per_step, buf, n_chains, space):
     return steps.numel() // (per_step * n_chains)
 
 
+def stage_bytes(rows: int) -> int:
+    """Dynamic shared memory of a block that stages ``rows`` rows with a
+    flag byte a row, rounded up to 16 bytes (``csrc/probe.cu``)."""
+    return rows * ROW_B + -(-rows // 16) * 16
+
+
+# The most rows a block can stage with their flags: 453.
+SHARE_ROWS = max(r for r in range(SHARED_LIMIT // ROW_B + 1)
+                 if stage_bytes(r) <= SHARED_LIMIT)
+
+
 def body_shared_bytes(n_rows: int, n_chains: int) -> int:
     """Shared memory of one ``probe_chain_body`` block in the shared space:
-    its chain's region of ``n_rows // n_chains`` rows and a flag byte a row,
-    rounded up to 16 bytes (``csrc/probe.cu``)."""
+    its chain's region of ``n_rows // n_chains`` rows and a flag byte a
+    row."""
+    return stage_bytes(n_rows // n_chains)
+
+
+class Plan(NamedTuple):
+    """A launch of ``probe_scalar`` or ``probe_gather``: blocks in the grid,
+    blocks a cluster (1: a plain launch), rows a block stages
+    (``probe_scalar``'s shared space) and dynamic shared bytes a block."""
+    grid: int
+    cluster: int
+    share_rows: int
+    shared_bytes: int
+
+
+LAUNCHED: dict[str, Plan] = {}
+
+
+def scalar_plan(n_rows: int, n_chains: int, space: str) -> Plan:
+    """The launch of ``probe_scalar`` on a buffer of ``n_rows`` rows.  In
+    device memory (``"global"``) a block of one warp a chain.  In the
+    shared space chain c's region of r = n_rows // n_chains rows is staged
+    by a cluster of k blocks, k the smallest power of two whose share of
+    ceil(r / k) rows fits a block (``SHARE_ROWS``): 4096 rows take clusters
+    of 16, 8, 4, 2 and 1 at 1, 2, 4, 8 and 16 chains.  Raises ValueError when
+    a chain would need more than ``MAX_CLUSTER`` blocks."""
+    if space == "global":
+        return Plan(n_chains, 1, 0, 0)
     region = n_rows // n_chains
-    return region * ROW_B + -(-region // 16) * 16
+    cluster = 1
+    while -(-region // cluster) > SHARE_ROWS:
+        cluster *= 2
+    if cluster > MAX_CLUSTER:
+        raise ValueError(
+            f"probe_scalar: a chain's region of {region} rows ({n_chains} "
+            f"chains x {n_rows} rows) needs a cluster of {cluster} blocks of "
+            f"at most {SHARE_ROWS} rows, more than {MAX_CLUSTER}")
+    share = max(-(-region // cluster), 1)
+    return Plan(n_chains * cluster, cluster, share, stage_bytes(share))
+
+
+def _launched(lib, err: int, kernel: str, what: str, plan: Plan) -> None:
+    """Raise ValueError naming the configuration unless the launch of
+    ``kernel`` went through; record its plan and count it if it did."""
+    if err:
+        reason = ("no cluster of that size fits the card "
+                  "(cudaOccupancyMaxActiveClusters: 0)"
+                  if err == CLUSTER_REFUSED else
+                  f"error {err} "
+                  f"({lib.minlz_error_string(err).decode(errors='replace')})")
+        raise ValueError(f"{kernel}: {what}, grid {plan.grid} in clusters "
+                         f"of {plan.cluster}: the card refused the launch: "
+                         f"{reason}")
+    LAUNCHED[kernel] = plan
+    _build.count_launch(kernel)
 
 
 def probe_scalar(rows, buf, n_chains: int, space: str = "global"):
     """rows: [n_chains * n_ops * 2] int32, per chain and step (src, dst)
     row numbers; buf: [n_rows, 128] int32.  Chain after chain (they must own
     disjoint rows), step after step: ``buf[dst] = buf[src] + 1``.  Row
-    numbers are clamped into buf.  ``space``: where the kernel walks the
-    buffer, ``"shared"`` (staged in shared memory; it must fit) or
-    ``"global"`` (device memory).  Returns the walked buffer."""
-    n_ops = _check_chain("probe_scalar", rows, 2, buf, n_chains, space)
-    if space == "shared" and buf.numel() * 4 > SHARED_LIMIT:
-        raise ValueError(
-            f"buf of {buf.numel() * 4} bytes does not fit the "
-            f"{SHARED_LIMIT} bytes of shared memory a block can use")
+    numbers are clamped into buf.  The kernel walks each chain in a block
+    (or a cluster) of its own.  ``space``: where it walks, ``"global"``
+    (device memory) or ``"shared"``: chain c's region, rows [c * r, (c + 1)
+    * r) with r = n_rows // n_chains, staged in shared memory as
+    ``scalar_plan`` says (ValueError when it cannot be); a row outside its
+    chain's region is walked in device memory, slower but as exact.
+    Returns the walked buffer."""
+    _check_chain("probe_scalar", rows, 2, buf, n_chains, space)
+    plan = scalar_plan(buf.shape[0], n_chains, space)
     if not _on_card("probe_scalar", buf):
         return probe_scalar_plain(rows, buf, n_chains)
     out = buf.clone()
+    launch_scalar(rows, out, n_chains, space, plan)
+    return out
+
+
+def launch_scalar(rows, buf, n_chains: int, space: str, plan: Plan):
+    """The bare launch of ``probe_scalar``'s kernel on checked CUDA tensors:
+    walks ``buf`` in place.  No check, no allocation; measurements time
+    this."""
+    n_ops = rows.numel() // (2 * n_chains)
     lib = _build.load()
     with torch.cuda.device(buf.device):
-        _build.check(lib, lib.minlz_probe_scalar(
-            rows.data_ptr(), n_ops, n_chains, buf.shape[0], out.data_ptr(),
-            int(space == "shared"), _build.stream_of(buf)))
-    _build.count_launch("probe_scalar")
-    return out
+        err = lib.minlz_probe_scalar(
+            rows.data_ptr(), n_ops, n_chains, buf.shape[0], buf.data_ptr(),
+            int(space == "shared"), plan.grid, plan.cluster, plan.share_rows,
+            plan.shared_bytes, _build.stream_of(buf))
+    _launched(lib, err, "probe_scalar",
+              f"{n_chains} chains x {buf.shape[0]} rows, {space}", plan)
 
 
 def probe_scalar_plain(rows, buf, n_chains: int):
@@ -226,24 +311,67 @@ def _check_idx(idx, device):
     return idx.shape[0] // 8
 
 
+def gather_plan(n_iters: int, tbl_words: int) -> Plan:
+    """The launch of ``probe_gather``: clusters of ``GATHER_CLUSTER``
+    blocks, enough for about ``GATHER_ITERS`` iterations a block, at most
+    ``MAX_GATHER_CLUSTERS``; each block takes a contiguous run of the
+    iterations and stages the table behind its 1024 partial sums."""
+    clusters = -(-n_iters // (GATHER_CLUSTER * GATHER_ITERS))
+    clusters = min(max(clusters, 1), MAX_GATHER_CLUSTERS)
+    return Plan(clusters * GATHER_CLUSTER, GATHER_CLUSTER, 0,
+                4 * (GATHER_ELEMS + tbl_words))
+
+
+_TICKETS: dict = {}
+
+
+def gather_tickets(device, stream: int):
+    """The ``GATHER_CLUSTER`` ticket counters of ``probe_gather`` on one
+    stream of a device: zeroed once when first asked for, and left at zero
+    by every launch (the block that draws a slice's last ticket resets
+    it), so no launch needs a memset."""
+    key = (device.index, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(GATHER_CLUSTER, dtype=_I32,
+                                    device=device)
+    return _TICKETS[key]
+
+
 def probe_gather(tbl, idx):
     """tbl: [rows, 128] int32, at most 36 KiB; idx: [8 * n_iters, 128]
     int32 flat indices into tbl, clamped into it.  Returns [8, 128] int32:
-    ``sum_i tbl.flat[idx[8 i : 8 i + 8]]`` with int32 wrap."""
+    ``sum_i tbl.flat[idx[8 i : 8 i + 8]]`` with int32 wrap.  The kernel
+    spreads the iterations over ``gather_plan``'s blocks and sums their
+    partial sums in the same launch."""
     _check_i32("tbl", tbl, 2)
     n_iters = _check_idx(idx, tbl.device)
     if tbl.shape[1] != ROW_WORDS or not 1 <= tbl.shape[0] <= 72:
         raise ValueError("tbl must be [1..72, 128]")
+    plan = gather_plan(n_iters, tbl.numel())
     if not _on_card("probe_gather", tbl):
         return probe_gather_plain(tbl, idx)
     out = torch.empty((8, ROW_WORDS), dtype=_I32, device=tbl.device)
-    lib = _build.load()
-    with torch.cuda.device(tbl.device):
-        _build.check(lib, lib.minlz_probe_gather(
-            tbl.data_ptr(), tbl.numel(), idx.data_ptr(), n_iters,
-            out.data_ptr(), _build.stream_of(tbl)))
-    _build.count_launch("probe_gather")
+    scratch = torch.empty((plan.grid // plan.cluster, GATHER_ELEMS),
+                          dtype=_I32, device=tbl.device)
+    launch_gather(tbl, idx, out, scratch, plan)
     return out
+
+
+def launch_gather(tbl, idx, out, scratch, plan: Plan):
+    """The bare launch of ``probe_gather``'s kernel on checked CUDA tensors:
+    ``out`` [8, 128] written, ``scratch`` [clusters, 1024] int32 of any
+    contents.  No check, no allocation; measurements time this."""
+    lib = _build.load()
+    stream = _build.stream_of(tbl)
+    tickets = gather_tickets(tbl.device, stream)
+    with torch.cuda.device(tbl.device):
+        err = lib.minlz_probe_gather(
+            tbl.data_ptr(), tbl.numel(), idx.data_ptr(), idx.shape[0] // 8,
+            out.data_ptr(), plan.grid, plan.cluster, plan.shared_bytes,
+            scratch.data_ptr(), tickets.data_ptr(), stream)
+    _launched(lib, err, "probe_gather",
+              f"{idx.shape[0] // 8} iterations over {tbl.numel()} words",
+              plan)
 
 
 def probe_gather_plain(tbl, idx):

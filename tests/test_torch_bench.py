@@ -48,8 +48,8 @@ def test_bench_main_takes_no_corpus_below_a_block():
 
 
 SCRIPTS = {
-    "kernel_probe": ["--steps", "32", "--rows", "64", "--shared-rows", "32",
-                     "--gather-iters", "4", "--taa-iters", "4"],
+    "kernel_probe": ["--steps", "32", "--rows", "64", "--gather-iters", "4",
+                     "--taa-iters", "4"],
     "ablate_exec": ["--ops", "64", "--chains", "1", "2", "--chain-rows",
                     "8"],
     "exec_probe": ["all", "--blocks", "1", "--block-kb", "32", "--steps",
@@ -64,6 +64,7 @@ SCRIPTS = {
 }
 EXPECT = {
     "kernel_probe": ["C in-row gather", "B tbl=9216 words",
+                     "A chains=1 space=shared rows=64 plan grid=1 cluster=1",
                      "A chains=16 space=global"],
     "ablate_exec": ["full       nchain= 1", "minimal    nchain= 2"],
     "exec_probe": ["compact+exec", "chainbody mode=realign chains=32",

@@ -598,6 +598,108 @@ def test_probe_gather_kernel_matches_plain():
               probe.probe_gather_plain(tbl, idx))
 
 
+@pytest.mark.parametrize("n_chains", [1, 2, 4, 8, 16])
+def test_probe_scalar_kernel_at_4096_rows_in_shared_memory(n_chains):
+    """The JAX script's 4096 rows in the shared space: a block a chain at
+    16 chains, a cluster of 2, 4, 8 or 16 blocks a chain below, the whole
+    buffer compared."""
+    from minlz_tpu_torch.ops import probe
+
+    steps, buf = _cuda(*probe.scalar_inputs(300, n_chains, 4096, fill=True))
+    _same(probe.probe_scalar(steps, buf, n_chains, "shared"),
+          probe.probe_scalar_plain(steps, buf, n_chains))
+    assert probe.LAUNCHED["probe_scalar"] == probe.scalar_plan(
+        4096, n_chains, "shared")
+
+
+@pytest.mark.parametrize("space", ["shared", "global"])
+@pytest.mark.parametrize("n_chains,rows", [(2, 4096), (16, 4096), (5, 83)])
+def test_probe_scalar_kernel_off_its_region(space, n_chains, rows):
+    """Chains that own disjoint rows but stray into the next chain's region
+    (and past the last region): those rows are walked in device memory and
+    stay exact, in a cluster too."""
+    from minlz_tpu_torch.ops import probe
+
+    from test_torch_probe import strayed
+
+    steps, buf = probe.scalar_inputs(300, n_chains, rows, fill=True)
+    steps, buf = _cuda(strayed(steps, rows, n_chains, per_step=2), buf)
+    _same(probe.probe_scalar(steps, buf, n_chains, space),
+          probe.probe_scalar_plain(steps, buf, n_chains))
+
+
+@pytest.mark.parametrize("space", ["shared", "global"])
+@pytest.mark.parametrize("n_chains,rows", [(4, 96), (2, 4096)])
+def test_probe_scalar_kernel_clamps_wild_rows(space, n_chains, rows):
+    """Row numbers below 0 in chain 0 and past the buffer in the last chain
+    (each clamps into its own chain's rows)."""
+    from minlz_tpu_torch.ops import probe
+
+    n_ops = 200
+    steps, buf = probe.scalar_inputs(n_ops, n_chains, rows, fill=True)
+    steps = steps.reshape(n_chains, n_ops, 2)
+    g = np.random.default_rng(6)
+    steps[0, ::7] = g.integers(-(1 << 31), 0, (len(steps[0, ::7]), 2))
+    steps[-1, ::5] = g.integers(rows, 1 << 31, (len(steps[-1, ::5]), 2))
+    steps, buf = _cuda(steps.reshape(-1).copy(), buf)
+    _same(probe.probe_scalar(steps, buf, n_chains, space),
+          probe.probe_scalar_plain(steps, buf, n_chains))
+
+
+@pytest.mark.parametrize("space", ["shared", "global"])
+def test_probe_scalar_kernel_alias_heavy(space):
+    """Regions of 3 rows, and every other step reads the row the step
+    before stored."""
+    from minlz_tpu_torch.ops import probe
+
+    from test_torch_probe import alias_heavy
+
+    for n_chains in (1, 7, 32):
+        steps, buf = probe.scalar_inputs(300, n_chains, 3 * n_chains,
+                                         fill=True)
+        steps, buf = _cuda(alias_heavy(steps, n_chains, 3 * n_chains), buf)
+        _same(probe.probe_scalar(steps, buf, n_chains, space),
+              probe.probe_scalar_plain(steps, buf, n_chains))
+
+
+def test_probe_scalar_wrapper_rejects_on_the_card():
+    """A region that needs more than 16 blocks of shared memory is refused,
+    not walked in device memory."""
+    from minlz_tpu_torch.ops import probe
+
+    steps, buf = _cuda(*probe.scalar_inputs(8, 1, 16 * 453 + 1, fill=True))
+    with pytest.raises(ValueError, match="more than 16"):
+        probe.probe_scalar(steps, buf, 1, space="shared")
+
+
+@pytest.mark.parametrize("n_iters", [1, 37, 257])
+@pytest.mark.parametrize("tbl_rows", [1, 8, 33, 72])
+def test_probe_gather_kernel_ragged(tbl_rows, n_iters):
+    """Tables of 1 to 72 rows (72: the script's 9 vregs), iteration counts
+    that leave blocks with one, two or no iterations, indices clamped from
+    below 0 and past the table."""
+    from minlz_tpu_torch.ops import probe
+
+    g = np.random.default_rng(tbl_rows + n_iters)
+    tbl = probe._fill((tbl_rows, 128), tbl_rows)
+    idx = g.integers(-9, tbl.size + 9, (8 * n_iters, 128), dtype=np.int32)
+    tbl, idx = _cuda(tbl, idx)
+    for _ in range(2):          # the second launch finds its tickets reset
+        _same(probe.probe_gather(tbl, idx),
+              probe.probe_gather_plain(tbl, idx))
+
+
+def test_probe_gather_kernel_spreads_over_the_card():
+    """The script's largest configuration launches more than one block,
+    and the plan it launched is gather_plan's."""
+    from minlz_tpu_torch.ops import probe
+
+    tbl, idx = _cuda(*probe.gather_inputs(256, 9, wrap=True))
+    _same(probe.probe_gather(tbl, idx), probe.probe_gather_plain(tbl, idx))
+    plan = probe.LAUNCHED["probe_gather"]
+    assert plan == probe.gather_plan(256, tbl.numel()) and plan.grid > 1
+
+
 def test_probe_taa_kernel_matches_plain():
     from minlz_tpu_torch.ops import probe
 

@@ -165,8 +165,8 @@ def test_probe_inputs_are_clamped_and_checked():
         probe.probe_gather(T(tbl), T(near)).numpy())
     with pytest.raises(ValueError):
         probe.probe_scalar(T(tame), T(buf), 33)
-    with pytest.raises(ValueError):
-        probe.probe_scalar(T(tame), T(probe._fill((4096, 128), 5)), 1,
+    with pytest.raises(ValueError, match="more than 16"):
+        probe.probe_scalar(T(tame), T(probe._fill((8192, 128), 5)), 1,
                            space="shared")
     with pytest.raises(ValueError):
         probe.probe_chain_body(T(tame), T(buf), 1, mode="shift")
@@ -200,12 +200,13 @@ def chain_steps(meta, n_chains):
     return meta.reshape(n_chains, -1, 3).astype(np.int64)
 
 
-def strayed(meta, rows, n_chains):
-    """meta with every row number moved on by half a region, modulo rows:
-    the chains still own disjoint rows, but half of each chain's rows lie
-    in the next chain's region."""
+def strayed(meta, rows, n_chains, per_step=3):
+    """meta (``per_step`` entries a step, the first two row numbers) with
+    every row number moved on by half a region, modulo rows: the chains
+    still own disjoint rows, but half of each chain's rows lie in the next
+    chain's region."""
     shift = rows // n_chains // 2
-    out = chain_steps(meta, n_chains).copy()
+    out = meta.reshape(n_chains, -1, per_step).astype(np.int64)
     out[..., :2] = (out[..., :2] + shift) % rows
     return out.astype(np.int32).reshape(-1)
 
@@ -349,3 +350,157 @@ def test_chain_body_shared_space_checks_each_region():
     with pytest.raises(ValueError, match="region of 454 rows"):
         probe.probe_chain_body(T(one), T(buf[:454].copy()), 1,
                                space="shared")
+
+
+# ---- probe_scalar a block or a cluster a chain, probe_gather over the card --
+
+@pytest.mark.parametrize("n_chains,cluster,share",
+                         [(1, 16, 256), (2, 8, 256), (4, 4, 256),
+                          (8, 2, 256), (16, 1, 256), (32, 1, 128)])
+def test_scalar_plan_at_4096_rows(n_chains, cluster, share):
+    """The TPU script's 4096 rows in the shared space at every chain count:
+    a cluster of the smallest power of two whose shares fit a block."""
+    plan = probe.scalar_plan(4096, n_chains, "shared")
+    assert plan == (n_chains * cluster, cluster, share,
+                    probe.stage_bytes(share))
+    assert plan.shared_bytes <= probe.SHARED_LIMIT
+    assert probe.scalar_plan(4096, n_chains, "global") == (n_chains, 1, 0, 0)
+
+
+def test_scalar_plan_refuses_more_than_16_blocks():
+    """A region that needs a cluster of 32 blocks raises, on the CPU too,
+    through the plan and through the wrapper; 16 x 453 rows is the most a
+    cluster stages."""
+    assert probe.SHARE_ROWS == 453
+    assert probe.scalar_plan(16 * 453, 1, "shared").cluster == 16
+    with pytest.raises(ValueError, match="needs a cluster of 32 blocks"):
+        probe.scalar_plan(16 * 453 + 1, 1, "shared")
+    rows, buf = probe.scalar_inputs(8, 2, 2 * (16 * 453 + 1))
+    with pytest.raises(ValueError, match="2 chains x 14498 rows"):
+        probe.probe_scalar(T(rows), T(buf), 2, space="shared")
+    np.testing.assert_array_equal(
+        probe.probe_scalar(T(rows), T(buf), 2, space="global").numpy(),
+        probe.probe_scalar_plain(T(rows), T(buf), 2).numpy())
+
+
+def cluster_model(rows_arr, buf, n_chains, cluster):
+    """The shared-space kernel of probe_scalar in numpy, on the schedule
+    that is hardest for it: every block of every chain's cluster stages its
+    share of the region (ceil(region / cluster) rows), then the chains walk
+    one after another in reverse order, each reading and storing a row of
+    its region in the stage of the rank that holds it and every other row
+    in the buffer, then every block writes back the share rows that a step
+    of its chain stores to (the flags come from the step list)."""
+    rows = buf.shape[0]
+    region = rows // n_chains
+    share = max(-(-region // cluster), 1)
+    out = buf.copy()
+    steps = np.clip(rows_arr.reshape(n_chains, -1, 2).astype(np.int64), 0,
+                    rows - 1)
+    stages = {}
+    for c in range(n_chains):
+        for q in range(cluster):
+            lo = c * region + q * share
+            hi = min(lo + share, (c + 1) * region)
+            stages[c, q] = (lo, out[lo:hi].copy())
+
+    def where(c, row):
+        rel = row - c * region
+        if 0 <= rel < region:
+            lo, stage = stages[c, rel // share]
+            return stage, row - lo
+        return out, row
+
+    for c in reversed(range(n_chains)):
+        for src, dst in steps[c]:
+            arr, i = where(c, src)
+            val = (arr[i].astype(np.int64) + 1).astype(np.uint32)
+            arr, i = where(c, dst)
+            arr[i] = val.view(np.int32)
+    for (c, q), (lo, stage) in stages.items():
+        for dst in set(steps[c, :, 1].tolist()):
+            if lo <= dst < lo + len(stage):
+                out[dst] = stage[dst - lo]
+    return out
+
+
+def alias_heavy(rows_arr, n_chains, rows):
+    """Steps whose src is the previous step's dst every other step, in
+    regions of a few rows."""
+    steps = rows_arr.reshape(n_chains, -1, 2).copy()
+    steps[:, 1::2, 0] = steps[:, 0:-1:2, 1]
+    return steps.reshape(-1)
+
+
+@pytest.mark.parametrize("inputs", ["script", "strayed", "alias"])
+@pytest.mark.parametrize("n_chains,rows,cluster",
+                         [(1, 64, 16), (2, 64, 4), (4, 64, 1), (5, 83, 4),
+                          (3, 50, 4), (8, 24, 2)])
+def test_scalar_cluster_walk_matches_plain(n_chains, rows, cluster, inputs):
+    """The cluster's bookkeeping (``cluster_model``) equals the plain
+    lockstep walk on the script's inputs, on chains that stray into the
+    next region (and onto the rows past the last region), and on steps
+    that read the row the step before stored, in regions of 3 rows."""
+    rows_arr, buf = probe.scalar_inputs(48, n_chains, rows, fill=True)
+    if inputs == "strayed":
+        rows_arr = strayed(rows_arr, rows, n_chains, per_step=2)
+        steps = rows_arr.reshape(n_chains, -1, 2)
+        assert (steps[..., 1] // (rows // n_chains)
+                != np.arange(n_chains)[:, None]).any() == (n_chains > 1)
+    elif inputs == "alias":
+        rows = 3 * n_chains
+        rows_arr, buf = probe.scalar_inputs(48, n_chains, rows, fill=True)
+        rows_arr = alias_heavy(rows_arr, n_chains, rows)
+    want = probe.probe_scalar_plain(T(rows_arr), T(buf), n_chains).numpy()
+    assert (want != buf).any(axis=1).sum() >= n_chains
+    np.testing.assert_array_equal(
+        cluster_model(rows_arr, buf, n_chains, cluster), want)
+    np.testing.assert_array_equal(
+        probe.probe_scalar(T(rows_arr), T(buf), n_chains, "shared").numpy(),
+        want)
+
+
+def gather_model(tbl, idx, plan):
+    """probe_gather's split in numpy: block b sums iterations [n b / grid,
+    n (b + 1) / grid), rank q of each cluster adds slice q of the cluster's
+    sums, and the last ticket of slice q adds it over the clusters; every
+    sum mod 2^32."""
+    n = idx.shape[0] // 8
+    picked = tbl.reshape(-1).astype(np.int64)[
+        np.clip(idx, 0, tbl.size - 1)].reshape(n, -1)
+    parts = np.stack([picked[n * b // plan.grid:n * (b + 1) // plan.grid]
+                      .sum(0) % (1 << 32) for b in range(plan.grid)])
+    clusters = parts.reshape(-1, plan.cluster, probe.GATHER_ELEMS)
+    slice_w = probe.GATHER_ELEMS // plan.cluster
+    out = np.zeros(probe.GATHER_ELEMS, np.int64)
+    for q in range(plan.cluster):
+        cols = slice(q * slice_w, (q + 1) * slice_w)
+        per_cluster = clusters[:, :, cols].sum(1) % (1 << 32)
+        out[cols] = per_cluster.sum(0) % (1 << 32)
+    return out.astype(np.uint32).view(np.int32).reshape(8, probe.ROW_WORDS)
+
+
+@pytest.mark.parametrize("n_iters", [1, 3, 37, 257])
+@pytest.mark.parametrize("tbl_rows", [1, 8, 33, 72])
+def test_gather_split_matches_plain(tbl_rows, n_iters):
+    """Ragged iteration counts over the plan's grid, partial sums merged
+    with int32 wrap, indices clamped from below 0 and past the table."""
+    plan = probe.gather_plan(n_iters, tbl_rows * probe.ROW_WORDS)
+    assert plan.grid % probe.GATHER_CLUSTER == 0
+    assert plan.grid <= probe.GATHER_CLUSTER * probe.MAX_GATHER_CLUSTERS
+    g = np.random.default_rng(n_iters)
+    tbl = probe._fill((tbl_rows, probe.ROW_WORDS), tbl_rows)
+    idx = g.integers(-9, tbl.size + 9, (8 * n_iters, probe.ROW_WORDS),
+                     dtype=np.int32)
+    want = probe.probe_gather_plain(T(tbl), T(idx)).numpy()
+    np.testing.assert_array_equal(gather_model(tbl, idx, plan), want)
+    np.testing.assert_array_equal(probe.probe_gather(T(tbl), T(idx)).numpy(),
+                                  want)
+
+
+def test_gather_plan_spreads_over_the_card():
+    """About two iterations a block, clusters of 8, at most 128 blocks."""
+    assert probe.gather_plan(1, 1024).grid == 8
+    assert probe.gather_plan(37, 1024).grid == 24
+    assert probe.gather_plan(256, 9216) == (128, 8, 0, 4 * (1024 + 9216))
+    assert probe.gather_plan(10 ** 6, 1024).grid == 128
