@@ -17,10 +17,11 @@ their plain versions at their scripts' default sizes (the chain body also in
 the shared space at the JAX script's 4096 rows, 16 and 32 chains; it and the
 ablation launch a thread block a chain; probe_scalar walks 4096 rows in
 both spaces at 1 to 16 chains, a block or a cluster of blocks a chain, and
-with strayed rows at 16; probe_gather runs on clusters of blocks across the
-card, also at a ragged count; both are timed alone, bare launches queued,
-beside their wrappers: "time probe_scalar" and "time probe_gather" lines,
-each with the grid and cluster launched) and then driven through
+with strayed rows at 16; probe_gather and probe_taa run on clusters of
+blocks across the card, also at ragged counts, probe_taa at none; the three
+are timed alone, bare launches queued, beside their wrappers: "time
+probe_scalar", "time probe_gather" and "time probe_taa" lines, each with
+the grid and cluster launched) and then driven through
 the port's measurement scripts (kernel_probe, exec_probe body, ablate_exec),
 whose lines are printed as "time probe ..."; minlz_tpu_torch.bench.main runs
 at 8 MiB and profile_decode prints each decode kernel's time alone beside its
@@ -124,22 +125,15 @@ BODY_SHARED_ROWS = 4096
 GATHER_TABLES = ((512, 1), (512, 2), (512, 4), (256, 9))  # (iters, 4 KiB)
 GATHER_RAGGED = (257, 9)    # a count that is no multiple of the grid
 TAA_ITERS = 2048
+# probe_taa is held at none, one, a ragged count and the script's (last:
+# its inputs and plan are the ones timed through the wrapper).
+TAA_SPLITS = (0, 1, 37, TAA_ITERS)
 ABLATE_RECORDS, ABLATE_CHAINS, ABLATE_ROWS = 4096, (8, 16), 128
 
 # Published peaks of one H100 SXM: device memory rate, and the float32 rate
 # outside the tensor cores, taken as the rate of scalar int32 arithmetic.
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
-# One SM of it, for the probes that launch one thread block: at the
-# 1.98 GHz boost clock, 64 bytes a clock from L2 into the SM (every byte
-# of device memory reaches the SM that way; the rate is the L1's fill path
-# as on earlier NVIDIA SMs, not a published H100 figure, so the bound may
-# be low, never high), 128 bytes a clock of shared memory (32 banks of 4
-# bytes) and a 132nd of the card's scalar rate.
-SM_CLOCK_HZ = 1.98e9
-SMS = 132
-L2_BYTES_PER_SM_S = 64 * SM_CLOCK_HZ
-SHARED_BYTES_PER_SM_S = 128 * SM_CLOCK_HZ
 
 KERNELS = {
     # name: (source, the TPU kernel it replaces, its launch count's name in
@@ -260,17 +254,6 @@ def bound(n_bytes: float, n_ops: float):
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     by_ops = n_ops / SCALAR_OPS_PER_S * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
-
-
-def bound_one_sm(l2_bytes: float, n_ops: float, shared_bytes: float = 0):
-    """(bound_ms, bound_by) of a kernel that runs in one thread block: the
-    bytes it must move through one SM's L2 path and through its shared
-    memory, and its operations on one SM; the largest of the three times."""
-    by_bytes = max(l2_bytes / L2_BYTES_PER_SM_S,
-                   shared_bytes / SHARED_BYTES_PER_SM_S) * 1e3
-    by_ops = n_ops / (SCALAR_OPS_PER_S / SMS) * 1e3
-    return (max(by_bytes, by_ops),
-            "bytes" if by_bytes >= by_ops else "operations")
 
 
 def foreign_modules():
@@ -424,10 +407,10 @@ def compare_probes(dev, card):
     (max abs err, kernel ms, plain ms, bound) per kernel; the times and the
     bound are of the largest configuration of each.  probe_scalar, the
     chain body and the ablation run a thread block (or a cluster) a chain
-    across the card, probe_gather about a block an SM: their bound is the
-    card's (``bound``); probe_taa runs one block, and its bound is one
-    SM's (``bound_one_sm``).  probe_scalar and probe_gather are also timed
-    alone (bare launches queued, ``queued_ms``) beside their wrappers."""
+    across the card, probe_gather and probe_taa about a block an SM: every
+    bound is the card's (``bound``).  probe_scalar, probe_gather and
+    probe_taa are also timed alone (bare launches queued, ``queued_ms``)
+    beside their wrappers."""
     from minlz_tpu_torch.ops import probe
 
     def to_dev(arrays):
@@ -435,8 +418,7 @@ def compare_probes(dev, card):
 
     err, k_ms, plain_ms, bounds = {}, {}, {}, {}
 
-    def held(name, label, kernel_fn, plain_fn, timed, n_bytes, n_ops,
-             shared_bytes=0, one_sm=True):
+    def held(name, label, kernel_fn, plain_fn, timed, n_bytes, n_ops):
         got = kernel_fn()
         torch.cuda.synchronize()
         want, p_ms = once_ms(plain_fn)
@@ -445,8 +427,7 @@ def compare_probes(dev, card):
         if timed:
             k_ms[name] = cuda_ms(kernel_fn)
             plain_ms[name] = p_ms
-            bounds[name] = (bound_one_sm(n_bytes, n_ops, shared_bytes)
-                            if one_sm else bound(n_bytes, n_ops))
+            bounds[name] = bound(n_bytes, n_ops)
 
     def held_body(rows, c, space, timed_as):
         meta, buf = to_dev(probe.chain_body_inputs(BODY_STEPS, c, rows,
@@ -459,7 +440,7 @@ def compare_probes(dev, card):
                  lambda: probe.probe_chain_body_plain(meta, buf, c, mode),
                  (space, c, mode) == timed_as,
                  4 * meta.numel() + 8 * buf.numel(),
-                 6 * 128 * BODY_STEPS * c, one_sm=False)
+                 6 * 128 * BODY_STEPS * c)
 
     floor_ns = {}
     for space, rows in SCALAR_FLOOR_ROWS.items():
@@ -487,7 +468,7 @@ def compare_probes(dev, card):
                      lambda: probe.probe_scalar_plain(steps, buf, c),
                      (space, c, strays) == ("shared", SCALAR_CHAINS[-1],
                                             False),
-                     n_bytes, 128 * SCALAR_STEPS * c, one_sm=False)
+                     n_bytes, 128 * SCALAR_STEPS * c)
                 plan = probe.LAUNCHED["probe_scalar"]
                 work = buf.clone()
                 alone = queued_ms(lambda: probe.launch_scalar(
@@ -525,12 +506,10 @@ def compare_probes(dev, card):
         n_bytes = 4 * (tbl.numel() + idx.numel() + 1024)
         held("probe_gather", f"{iters} x 1024 from {vregs * 1024} words",
              wrapper, lambda: probe.probe_gather_plain(tbl, idx),
-             (iters, vregs) == GATHER_TABLES[-1], n_bytes, 2 * idx.numel(),
-             one_sm=False)
+             (iters, vregs) == GATHER_TABLES[-1], n_bytes, 2 * idx.numel())
         plan = probe.LAUNCHED["probe_gather"]
         out = torch.empty((8, 128), dtype=torch.int32, device=dev)
-        scratch = torch.empty((plan.grid // plan.cluster, 1024),
-                              dtype=torch.int32, device=dev)
+        scratch = probe.gather_scratch(plan, dev)
         bare = lambda: probe.launch_gather(tbl, idx, out, scratch, plan)
         alone = queued_ms(bare)
         log(f"time probe_gather {iters} x 1024 gathers from {vregs * 1024} "
@@ -541,17 +520,34 @@ def compare_probes(dev, card):
             f"alone ({host_us(bare):.1f} us of host time a bare launch); "
             f"bound {bound(n_bytes, 2 * idx.numel())[0]:.4f} ms  "
             f"[{card}]")
-    a, idx = to_dev(probe.taa_inputs(TAA_ITERS, wrap=True))
-    # Four shuffles, three selects and an add per element.
-    held("probe_taa", f"{TAA_ITERS} iterations",
-         lambda: probe.probe_taa(a, idx),
-         lambda: probe.probe_taa_plain(a, idx), True,
-         4 * (a.numel() + idx.numel() + 1024), 8 * idx.numel())
+    taa_alone = {}
+    for iters in TAA_SPLITS:
+        a, idx = to_dev(probe.taa_inputs(iters, wrap=True))
+        wrapper = lambda: probe.probe_taa(a, idx)
+        # Row, indices and sums through L2; four shuffles, three selects and
+        # an add per element.
+        n_bytes = 4 * (a.numel() + idx.numel() + 1024)
+        held("probe_taa", f"{iters} iterations", wrapper,
+             lambda: probe.probe_taa_plain(a, idx), iters == TAA_ITERS,
+             n_bytes, 8 * idx.numel())
+        plan = probe.LAUNCHED["probe_taa"]
+        if iters in (1, TAA_ITERS):
+            out = torch.empty((8, 128), dtype=torch.int32, device=dev)
+            scratch = probe.gather_scratch(plan, dev)
+            taa_alone[iters] = queued_ms(lambda: probe.launch_taa(
+                a, idx, out, scratch, plan))
+    log(f"time probe_taa {TAA_ITERS} x 1024 in-row gathers: grid "
+        f"{plan.grid} cluster {plan.cluster}: {cuda_ms(wrapper):.4f} ms "
+        f"through the wrapper ({host_us(wrapper):.1f} us of host time a "
+        f"call), {queued_ms(wrapper):.4f} ms through it queued, "
+        f"{taa_alone[TAA_ITERS]:.4f} ms alone, {taa_alone[1]:.4f} ms alone "
+        f"at 1 iteration (grid {probe.gather_plan(1, 0).grid}); bound "
+        f"{bound(n_bytes, 8 * idx.numel())[0]:.4f} ms  [{card}]")
     log(f"probe_gather == plain version (tolerance 0) on tables of "
         f"{[v * 1024 for _, v in GATHER_TABLES]} words and at "
-        f"{GATHER_RAGGED[0]} iterations (grid: clusters of blocks across "
-        f"the card), and probe_taa on "
-        f"{TAA_ITERS} x 1024 in-row gathers, int32 sums that wrap")
+        f"{GATHER_RAGGED[0]} iterations, and probe_taa at {TAA_SPLITS} x "
+        f"1024 in-row gathers, int32 sums that wrap (grid: clusters of "
+        f"blocks across the card)")
     for variant in probe.VARIANTS:
         for c in ABLATE_CHAINS:
             counts, ops, arena = to_dev(probe.ablate_inputs(
@@ -566,7 +562,7 @@ def compare_probes(dev, card):
                                                  chain_rows=ABLATE_ROWS),
                  (variant, c) == ("full", ABLATE_CHAINS[0]),
                  4 * (counts.numel() + ops.numel() + 2 * arena.numel()),
-                 2 * moved, one_sm=False)
+                 2 * moved)
     log(f"ablate_exec == plain version (tolerance 0, whole arena) in "
         f"{probe.VARIANTS} at {ABLATE_RECORDS} records x {ABLATE_CHAINS} "
         f"chains (grid: a block a chain): compared and timed at the same, "
@@ -2063,7 +2059,8 @@ def main():
               "probe_gather": f"{GATHER_TABLES[-1][0]} x 1024 gathers from "
                               f"{GATHER_TABLES[-1][1] * 1024} words, grid "
                               f"{gather_grid} blocks",
-              "probe_taa": f"{TAA_ITERS} x 1024 in-row gathers",
+              "probe_taa": f"{TAA_ITERS} x 1024 in-row gathers, grid "
+                           f"{gather_plan(TAA_ITERS, 0).grid} blocks",
               "probe_chain_body": f"{BODY_STEPS} steps x {BODY_CHAINS[-1]} "
                                   f"chains, realign, device memory, grid "
                                   f"{BODY_CHAINS[-1]} blocks",

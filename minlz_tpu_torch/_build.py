@@ -84,8 +84,9 @@ _SIGNATURES = {
     "minlz_probe_gather": [_P, ctypes.c_int, _P, ctypes.c_int, _P,
                            ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P,
                            _P],
-    # a, idx, n_iters, out, stream
-    "minlz_probe_taa": [_P, _P, ctypes.c_int, _P, _P],
+    # a, idx, n_iters, out, grid, cluster, smem, scratch, tickets, stream
+    "minlz_probe_taa": [_P, _P, ctypes.c_int, _P, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_int, _P, _P, _P],
     # counts, ops, cap, nchain, arena_in, out, n_rows, out_base_row,
     # chain_rows, variant, stream
     "minlz_ablate_exec": [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P,

@@ -10,14 +10,14 @@
 // probe_chain_body_kernel  replaces the kernel of
 //                          scripts/exec_probe.py::bench_chain_body
 //
-// probe_taa runs in ONE thread block (one SM), as the TPU probes run on one
-// core.  The two chain kernels run ONE BLOCK A CHAIN (probe_scalar: a
-// cluster of blocks a chain where the chain's region does not fit one
-// block), spread over the SMs: their TPU kernels held the whole buffer in
-// VMEM on a core that is the whole chip, and a chain's steps never touch
-// another chain's rows, so the chains need not share an SM.  probe_gather
-// spreads its iterations over about one block an SM and sums the blocks'
-// partial sums on the card in the same launch.
+// The two chain kernels run ONE BLOCK A CHAIN (probe_scalar: a cluster of
+// blocks a chain where the chain's region does not fit one block), spread
+// over the SMs: their TPU kernels held the whole buffer in VMEM on a core
+// that is the whole chip, and a chain's steps never touch another chain's
+// rows, so the chains need not share an SM.  The two gathers (probe_gather,
+// probe_taa) spread their iterations over about one block an SM and sum the
+// blocks' partial sums on the card in the same launch, by one reduction
+// (sum_partials) that both call.
 //
 // What bounds them here: the two chain kernels are bound by latency, not by
 // bytes or operations: every step loads a row that an earlier step of the
@@ -25,10 +25,12 @@
 // itself, so a step costs the dependent latency of one row move in the
 // space it walks: device memory, the block's shared memory, or a cluster's
 // distributed shared memory (DSMEM), where a row may lie in another SM.
-// probe_gather is bound by a launch and one wave: its megabyte of indices
-// is small against the card's rate, and random indices conflict in the
-// shared-memory banks of each SM.  probe_taa is bound by one SM's shuffle
-// rate (four shuffles an element).
+// The gathers are bound by a launch and one wave: probe_gather's megabyte
+// of indices is small against the card's rate, and random indices conflict
+// in the shared-memory banks of each SM; probe_taa's 8 MiB of indices take
+// 2.5 us at the card's rate, and its four shuffles an element about 1 us on
+// 132 SMs, against the few us of a clustered launch with two cluster syncs
+// and a ticket.
 //
 // What the designs do about it: the chain kernels fetch their step lists
 // ahead of the walk, 32 steps at a time with one coalesced load per lane;
@@ -402,7 +404,7 @@ __global__ void probe_chain_body_kernel(const int* __restrict__ meta,
   }
 }
 
-// ---- probe_gather: spread over the card, summed in the same launch ---------
+// ---- the gathers: spread over the card, summed in the same launch ----------
 
 constexpr int kIterVecs = kGatherThreads / 4;   // uint4 of 1024 sums: 256
 constexpr int kGatherBlock = kIterVecs;   // threads; four of the sums each
@@ -413,56 +415,60 @@ __device__ __forceinline__ uint4 add4(uint4 a, uint4 b) {
   return make_uint4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
-// out[t] = sum over i of tbl[idx[i * 1024 + t]], int32 wrap, t = 0..1023.
-// Block b of the grid takes iterations [n_iters * b / grid, n_iters * (b + 1)
-// / grid); it stages the table in shared memory (at most 36 KiB) behind its
-// first iteration's indices, and thread j reads indices 4j..4j+3 of an
-// iteration with one 16-byte load, gathers them from the table and keeps
-// four unsigned sums in registers.  The sums are combined in the same
-// launch, and addition mod 2^32 makes any order exact:
-//   1. each block puts its 1024 sums in its shared memory; the blocks of a
-//      cluster meet; rank q adds slice q (sums 128 q .. 128 q + 127) over
-//      the cluster's blocks through DSMEM and writes it to scratch[cluster,
-//      slice];
-//   2. it takes a ticket on tickets[q]; the block that draws the last ticket
-//      adds slice q over every cluster's row of scratch, writes it to out
-//      and sets tickets[q] back to 0 for the next launch.
-// Indices are clamped into the table.
-__global__ void probe_gather_kernel(const int* __restrict__ tbl, int tbl_n,
-                                    const int* __restrict__ idx, int n_iters,
-                                    uint4* __restrict__ scratch,
-                                    unsigned* __restrict__ tickets,
-                                    int* __restrict__ out) {
-  extern __shared__ int4 stage[];
-  uint4* part = reinterpret_cast<uint4*>(stage);           // 1024 sums
-  int* s_tbl = reinterpret_cast<int*>(stage + kIterVecs);
-  cg::cluster_group cluster = cg::this_cluster();
-  const int t = threadIdx.x;
+// The 1024 sums of an iteration's words, t = 0..1023, over block b's
+// iterations [n_iters * b / grid, n_iters * (b + 1) / grid): thread j reads
+// indices 4j..4j+3 of an iteration with one 16-byte load (the next
+// iteration's before this one's lookups) and keeps their four words'
+// unsigned sums.  look.prepare() runs after the first load is issued;
+// look(v) gives the four words of the indices in v.
+template <class Lookup>
+__device__ __forceinline__ uint4 accumulate(Lookup& look,
+                                            const int* __restrict__ idx,
+                                            int n_iters) {
   const int grid = gridDim.x, b = blockIdx.x;
   const int i_lo = (int)((long long)n_iters * b / grid);
   const int i_hi = (int)((long long)n_iters * (b + 1) / grid);
-  const int4* idx4 = reinterpret_cast<const int4*>(idx) + t;
+  const int4* idx4 = reinterpret_cast<const int4*>(idx) + threadIdx.x;
   int4 v = i_lo < i_hi ? idx4[(long long)i_lo * kIterVecs]
                        : make_int4(0, 0, 0, 0);
-  copy_vecs(reinterpret_cast<int4*>(s_tbl),
-            reinterpret_cast<const int4*>(tbl), tbl_n / 4);
+  look.prepare();
   __syncthreads();
-  const int last = tbl_n - 1;
   uint4 acc = make_uint4(0, 0, 0, 0);
 #pragma unroll 4
   for (int i = i_lo; i < i_hi; ++i) {
     const int4 nx = i + 1 < i_hi ? idx4[(long long)(i + 1) * kIterVecs] : v;
-    acc.x += (unsigned)s_tbl[clampi(v.x, 0, last)];
-    acc.y += (unsigned)s_tbl[clampi(v.y, 0, last)];
-    acc.z += (unsigned)s_tbl[clampi(v.z, 0, last)];
-    acc.w += (unsigned)s_tbl[clampi(v.w, 0, last)];
+    acc = add4(acc, look(v));
     v = nx;
   }
+  return acc;
+}
+
+// out[t] = the sum of every block's sum t, mod 2^32, written in the same
+// launch; acc holds this thread's sums 4 threadIdx.x .. 4 threadIdx.x + 3.
+// Addition mod 2^32 makes any order exact:
+//   1. each block puts its 1024 sums at the front of its dynamic shared
+//      memory; the blocks of a cluster meet; rank q adds slice q (sums
+//      128 q .. 128 q + 127) over the cluster's blocks through DSMEM and
+//      writes it to scratch[cluster, slice];
+//   2. it takes a ticket on tickets[q]; the block that draws the last ticket
+//      adds slice q over every cluster's row of scratch, writes it to out
+//      and sets tickets[q] back to 0 for the next launch.
+// So nothing is memset and nothing is read back, and the two gathers may
+// share their tickets on a stream: launches on a stream run one after
+// another, and each leaves every ticket at 0.
+__device__ __forceinline__ void sum_partials(uint4 acc,
+                                             uint4* __restrict__ scratch,
+                                             unsigned* __restrict__ tickets,
+                                             int* __restrict__ out) {
+  extern __shared__ int4 stage[];
+  uint4* part = reinterpret_cast<uint4*>(stage);           // 1024 sums
+  cg::cluster_group cluster = cg::this_cluster();
+  const int t = threadIdx.x;
   part[t] = acc;
   cluster.sync();
   const unsigned q = cluster.block_rank();
-  const int n_clusters = grid / kGatherCluster;
-  const int cl = b / kGatherCluster;
+  const int n_clusters = gridDim.x / kGatherCluster;
+  const int cl = blockIdx.x / kGatherCluster;
   const int slice = q * kSliceVecs + t;
   if (t < kSliceVecs) {
     uint4 sum = make_uint4(0, 0, 0, 0);
@@ -489,34 +495,78 @@ __global__ void probe_gather_kernel(const int* __restrict__ tbl, int tbl_n,
   }
 }
 
-// out[r, l] = sum over i of a[r, idx[8 i + r, l]], int32 wrap: a gather
-// inside a row of 128, done in registers.  Thread t serves out[t >> 7,
-// t & 127]; its warp holds row r of `a` as four registers a lane (register q
-// is word 32 q + lane), serves an index with four shuffles at lane
-// idx & 31 and keeps the one of quarter idx >> 5.  Indices are clamped into
-// the row.
+// probe_gather's lookup: flat indices into the table, which prepare()
+// stages in shared memory behind the 1024 sums (at most 36 KiB).  Indices
+// are clamped into the table.
+struct TableLookup {
+  const int* tbl;
+  int tbl_n;
+  __device__ void prepare() {
+    extern __shared__ int4 stage[];
+    copy_vecs(stage + kIterVecs, reinterpret_cast<const int4*>(tbl),
+              tbl_n / 4);
+  }
+  __device__ uint4 operator()(int4 v) const {
+    extern __shared__ int4 stage[];
+    const int* s_tbl = reinterpret_cast<const int*>(stage + kIterVecs);
+    const int last = tbl_n - 1;
+    return make_uint4((unsigned)s_tbl[clampi(v.x, 0, last)],
+                      (unsigned)s_tbl[clampi(v.y, 0, last)],
+                      (unsigned)s_tbl[clampi(v.z, 0, last)],
+                      (unsigned)s_tbl[clampi(v.w, 0, last)]);
+  }
+};
+
+// probe_taa's lookup: positions in a row of 128, gathered inside the warp.
+// Thread j's four elements lie in row j >> 5 (its warp's), which the warp
+// holds as four registers a lane (register q is word 32 q + lane); an
+// index is served by four shuffles at lane ix & 31, keeping the one of
+// quarter ix >> 5.  Indices are clamped into the row.
+struct RowLookup {
+  const int* a;
+  int r0, r1, r2, r3;
+  __device__ void prepare() {
+    const int lane = threadIdx.x & 31;
+    const int* row = a + (threadIdx.x >> 5) * kRowWords;
+    r0 = row[lane];
+    r1 = row[32 + lane];
+    r2 = row[64 + lane];
+    r3 = row[96 + lane];
+  }
+  __device__ unsigned word(int ix) const {
+    ix = clampi(ix, 0, kRowWords - 1);
+    const int from = ix & 31, q = ix >> 5;
+    const int v0 = __shfl_sync(kFull, r0, from);
+    const int v1 = __shfl_sync(kFull, r1, from);
+    const int v2 = __shfl_sync(kFull, r2, from);
+    const int v3 = __shfl_sync(kFull, r3, from);
+    return (unsigned)(q == 0 ? v0 : q == 1 ? v1 : q == 2 ? v2 : v3);
+  }
+  __device__ uint4 operator()(int4 v) const {
+    return make_uint4(word(v.x), word(v.y), word(v.z), word(v.w));
+  }
+};
+
+// out[t] = sum over i of tbl[idx[i * 1024 + t]], int32 wrap, t = 0..1023.
+__global__ void probe_gather_kernel(const int* __restrict__ tbl, int tbl_n,
+                                    const int* __restrict__ idx, int n_iters,
+                                    uint4* __restrict__ scratch,
+                                    unsigned* __restrict__ tickets,
+                                    int* __restrict__ out) {
+  TableLookup look{tbl, tbl_n};
+  sum_partials(accumulate(look, idx, n_iters), scratch, tickets, out);
+}
+
+// out[r, l] = sum over i of a[r, idx[8 i + r, l]], int32 wrap: the TPU
+// probe's take_along_axis inside a vreg row, here a gather inside a warp's
+// registers.
 __global__ void probe_taa_kernel(const int* __restrict__ a,
                                  const int* __restrict__ idx, int n_iters,
+                                 uint4* __restrict__ scratch,
+                                 unsigned* __restrict__ tickets,
                                  int* __restrict__ out) {
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int* row = a + (t >> 7) * kRowWords;
-  const int a0 = row[lane], a1 = row[32 + lane], a2 = row[64 + lane],
-            a3 = row[96 + lane];
-  unsigned acc = 0;
-#pragma unroll 8
-  for (int i = 0; i < n_iters; ++i) {
-    const int ix = clampi(idx[(long long)i * kGatherThreads + t], 0,
-                          kRowWords - 1);
-    const int from = ix & 31;
-    const int q = ix >> 5;
-    const int v0 = __shfl_sync(kFull, a0, from);
-    const int v1 = __shfl_sync(kFull, a1, from);
-    const int v2 = __shfl_sync(kFull, a2, from);
-    const int v3 = __shfl_sync(kFull, a3, from);
-    acc += (unsigned)(q == 0 ? v0 : q == 1 ? v1 : q == 2 ? v2 : v3);
-  }
-  out[t] = (int)acc;
+  RowLookup look{a};
+  sum_partials(accumulate(look, idx, n_iters), scratch, tickets, out);
 }
 
 // Bytes of dynamic shared memory that `rows` staged rows take with their
@@ -579,6 +629,15 @@ int launch_body(bool shared, const void* meta, int n_ops, int n_chains,
            (cudaStream_t)stream>>>((const int*)meta, n_ops, n_rows, region,
                                    (int*)buf);
   return (int)cudaGetLastError();
+}
+
+// Whether a gather's plan (ops/probe.py: gather_plan) is one the kernels
+// take: `grid` blocks in clusters of kGatherCluster, each with the 1024
+// sums and then `staged` words of table in `smem` bytes of shared memory.
+bool gather_plan_ok(int n_iters, int grid, int cluster, int smem,
+                    int staged) {
+  return n_iters >= 0 && cluster == kGatherCluster && grid >= cluster &&
+         grid % cluster == 0 && smem == (kGatherThreads + staged) * 4;
 }
 
 }  // namespace
@@ -650,9 +709,8 @@ MINLZ_EXPORT int minlz_probe_gather(const void* tbl, int tbl_n,
                                     int grid, int cluster, int smem,
                                     void* scratch, void* tickets,
                                     void* stream) {
-  if (tbl_n <= 0 || tbl_n % 4 || n_iters < 0 || cluster != kGatherCluster ||
-      grid < cluster || grid % cluster ||
-      smem != (kGatherThreads + tbl_n) * 4)
+  if (tbl_n <= 0 || tbl_n % 4 ||
+      !gather_plan_ok(n_iters, grid, cluster, smem, tbl_n))
     return (int)cudaErrorInvalidValue;
   return launch_clusters(probe_gather_kernel, grid, kGatherBlock, smem,
                          cluster, stream,
@@ -660,10 +718,16 @@ MINLZ_EXPORT int minlz_probe_gather(const void* tbl, int tbl_n,
                          (uint4*)scratch, (unsigned*)tickets, (int*)out);
 }
 
-// a: [8, 128] int32; idx: [n_iters, 1024] int32; out: [1024] int32.
+// a: [8, 128] int32; idx: [n_iters, 1024] int32; out: [1024] int32.  The
+// plan is gather_plan's with no table (smem: the 1024 sums alone); scratch
+// and tickets as for minlz_probe_gather, whose tickets these may be.
 MINLZ_EXPORT int minlz_probe_taa(const void* a, const void* idx, int n_iters,
-                                 void* out, void* stream) {
-  probe_taa_kernel<<<1, kGatherThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)a, (const int*)idx, n_iters, (int*)out);
-  return (int)cudaGetLastError();
+                                 void* out, int grid, int cluster, int smem,
+                                 void* scratch, void* tickets,
+                                 void* stream) {
+  if (!gather_plan_ok(n_iters, grid, cluster, smem, 0))
+    return (int)cudaErrorInvalidValue;
+  return launch_clusters(probe_taa_kernel, grid, kGatherBlock, smem, cluster,
+                         stream, (const int*)a, (const int*)idx, n_iters,
+                         (uint4*)scratch, (unsigned*)tickets, (int*)out);
 }

@@ -19,14 +19,14 @@ row 0 only):
 * ``ablate_exec``: ``nchain`` synthetic LZ record chains over one arena, in
   five variants (``csrc/ablate.cu`` defines them).
 
-``probe_taa`` runs in one thread block (one SM).  The chain body, the
-ablation and ``probe_scalar`` run one thread block a chain, each staging its
-chain's region of the buffer or arena in shared memory; ``probe_scalar``
-stages a region that does not fit one block across a thread block cluster
-(``scalar_plan``).  ``probe_gather`` spreads its iterations over clusters of
-blocks across the card and sums their partial sums on the card in the same
-launch (``gather_plan``).  ``LAUNCHED`` keeps the plan of each of those two
-kernels' last launch.
+The chain body, the ablation and ``probe_scalar`` run one thread block a
+chain, each staging its chain's region of the buffer or arena in shared
+memory; ``probe_scalar`` stages a region that does not fit one block across
+a thread block cluster (``scalar_plan``).  ``probe_gather`` and
+``probe_taa`` spread their iterations over clusters of blocks across the
+card and sum their partial sums on the card in the same launch
+(``gather_plan``), by one reduction and on one set of tickets.
+``LAUNCHED`` keeps the plan of each of those three kernels' last launch.
 
 Each wrapper launches its CUDA kernel (``csrc/probe.cu``,
 ``csrc/ablate.cu``) for CUDA tensors and runs its plain torch version, in
@@ -125,9 +125,10 @@ def body_shared_bytes(n_rows: int, n_chains: int) -> int:
 
 
 class Plan(NamedTuple):
-    """A launch of ``probe_scalar`` or ``probe_gather``: blocks in the grid,
-    blocks a cluster (1: a plain launch), rows a block stages
-    (``probe_scalar``'s shared space) and dynamic shared bytes a block."""
+    """A launch of ``probe_scalar``, ``probe_gather`` or ``probe_taa``:
+    blocks in the grid, blocks a cluster (1: a plain launch), rows a block
+    stages (``probe_scalar``'s shared space) and dynamic shared bytes a
+    block."""
     grid: int
     cluster: int
     share_rows: int
@@ -312,10 +313,11 @@ def _check_idx(idx, device):
 
 
 def gather_plan(n_iters: int, tbl_words: int) -> Plan:
-    """The launch of ``probe_gather``: clusters of ``GATHER_CLUSTER``
-    blocks, enough for about ``GATHER_ITERS`` iterations a block, at most
-    ``MAX_GATHER_CLUSTERS``; each block takes a contiguous run of the
-    iterations and stages the table behind its 1024 partial sums."""
+    """The launch of ``probe_gather`` (and, with ``tbl_words`` 0, of
+    ``probe_taa``): clusters of ``GATHER_CLUSTER`` blocks, enough for about
+    ``GATHER_ITERS`` iterations a block, at most ``MAX_GATHER_CLUSTERS``;
+    each block takes a contiguous run of the iterations and stages the table
+    behind its 1024 partial sums."""
     clusters = -(-n_iters // (GATHER_CLUSTER * GATHER_ITERS))
     clusters = min(max(clusters, 1), MAX_GATHER_CLUSTERS)
     return Plan(clusters * GATHER_CLUSTER, GATHER_CLUSTER, 0,
@@ -326,15 +328,23 @@ _TICKETS: dict = {}
 
 
 def gather_tickets(device, stream: int):
-    """The ``GATHER_CLUSTER`` ticket counters of ``probe_gather`` on one
-    stream of a device: zeroed once when first asked for, and left at zero
-    by every launch (the block that draws a slice's last ticket resets
-    it), so no launch needs a memset."""
+    """The ``GATHER_CLUSTER`` ticket counters of ``probe_gather`` and
+    ``probe_taa`` on one stream of a device: zeroed once when first asked
+    for, and left at zero by every launch (the block that draws a slice's
+    last ticket resets it), so no launch needs a memset.  The two kernels
+    share them because launches on one stream run one after another."""
     key = (device.index, stream)
     if key not in _TICKETS:
         _TICKETS[key] = torch.zeros(GATHER_CLUSTER, dtype=_I32,
                                     device=device)
     return _TICKETS[key]
+
+
+def gather_scratch(plan: Plan, device):
+    """The [clusters, 1024] int32 scratch of a gather launch, any
+    contents."""
+    return torch.empty((plan.grid // plan.cluster, GATHER_ELEMS), dtype=_I32,
+                       device=device)
 
 
 def probe_gather(tbl, idx):
@@ -351,9 +361,7 @@ def probe_gather(tbl, idx):
     if not _on_card("probe_gather", tbl):
         return probe_gather_plain(tbl, idx)
     out = torch.empty((8, ROW_WORDS), dtype=_I32, device=tbl.device)
-    scratch = torch.empty((plan.grid // plan.cluster, GATHER_ELEMS),
-                          dtype=_I32, device=tbl.device)
-    launch_gather(tbl, idx, out, scratch, plan)
+    launch_gather(tbl, idx, out, gather_scratch(plan, tbl.device), plan)
     return out
 
 
@@ -384,21 +392,35 @@ def probe_gather_plain(tbl, idx):
 def probe_taa(a, idx):
     """a: [8, 128] int32; idx: [8 * n_iters, 128] int32 positions in a row,
     clamped into 0..127.  Returns [8, 128] int32:
-    ``out[r, l] = sum_i a[r, idx[8 i + r, l]]`` with int32 wrap."""
+    ``out[r, l] = sum_i a[r, idx[8 i + r, l]]`` with int32 wrap.  The kernel
+    spreads the iterations over ``gather_plan``'s blocks (no table), gathers
+    inside each warp's registers by shuffles, and sums the partial sums in
+    the same launch, as ``probe_gather`` does."""
     _check_i32("a", a, 2)
     n_iters = _check_idx(idx, a.device)
     if a.shape != (8, ROW_WORDS):
         raise ValueError("a must be [8, 128]")
+    plan = gather_plan(n_iters, 0)
     if not _on_card("probe_taa", a):
         return probe_taa_plain(a, idx)
     out = torch.empty((8, ROW_WORDS), dtype=_I32, device=a.device)
-    lib = _build.load()
-    with torch.cuda.device(a.device):
-        _build.check(lib, lib.minlz_probe_taa(
-            a.data_ptr(), idx.data_ptr(), n_iters, out.data_ptr(),
-            _build.stream_of(a)))
-    _build.count_launch("probe_taa")
+    launch_taa(a, idx, out, gather_scratch(plan, a.device), plan)
     return out
+
+
+def launch_taa(a, idx, out, scratch, plan: Plan):
+    """The bare launch of ``probe_taa``'s kernel on checked CUDA tensors,
+    as ``launch_gather``'s; it shares that kernel's tickets.  No check, no
+    allocation; measurements time this."""
+    lib = _build.load()
+    stream = _build.stream_of(a)
+    tickets = gather_tickets(a.device, stream)
+    with torch.cuda.device(a.device):
+        err = lib.minlz_probe_taa(
+            a.data_ptr(), idx.data_ptr(), idx.shape[0] // 8, out.data_ptr(),
+            plan.grid, plan.cluster, plan.shared_bytes, scratch.data_ptr(),
+            tickets.data_ptr(), stream)
+    _launched(lib, err, "probe_taa", f"{idx.shape[0] // 8} iterations", plan)
 
 
 def probe_taa_plain(a, idx):

@@ -11,8 +11,9 @@ A) a serial chain of dependent row moves (one 512-byte row loaded and stored
 B) a gather of 1024 arbitrary int32 from a table of 4 to 36 KiB in shared
    memory, the iterations spread over clusters of blocks across the card
    -> elements/s under random bank conflicts.
-C) a gather inside rows of 128 int32 held in registers, by warp shuffles,
-   on one SM -> elements/s.
+C) a gather inside rows of 128 int32 held in a warp's registers, by warp
+   shuffles, the iterations spread over clusters of blocks across the card
+   -> elements/s.
 
     python -m minlz_tpu_torch.scripts.kernel_probe [--device cuda|cpu]
         [--steps 8192] [--rows 4096] [--gather-iters 512]
@@ -80,9 +81,11 @@ def bench_gather(n_iters=512, tbl_vregs=1, device="cuda", iters=3):
 def bench_taa(n_iters=2048, device="cuda", iters=3):
     """Elements/s of ``probe_taa``."""
     a, idx = _to(device, *probe.taa_inputs(n_iters, wrap=True))
+    plan = probe.gather_plan(n_iters, 0)
     t, _ = timed_device(probe.probe_taa, (a, idx), iters)
     total = n_iters * probe.GATHER_ELEMS
-    print(f"C in-row gather by shuffles, grid=1 block: "
+    print(f"C in-row gather by shuffles iters={n_iters} "
+          f"{_plan('probe_taa', plan, device)}: "
           f"{t * 1e9 / total:.3f} ns/elem "
           f"({total / t / 1e9:.2f} G elem/s)  [{card(device)}]", flush=True)
 

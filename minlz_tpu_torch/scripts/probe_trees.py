@@ -1,9 +1,10 @@
-"""probe_scalar and probe_gather of several checkouts, timed in turn on the
-card: to compare two versions of the kernels in one run, on one card.
+"""probe_scalar, probe_gather and probe_taa of several checkouts, timed in
+turn on the card: to compare two versions of the kernels in one run, on one
+card.
 
 Each TREE is the root of a checkout of this repository.  Its own
 ``minlz_tpu_torch`` is imported in a child process (which builds that
-tree's kernels into the tree's ``build/``) and its two kernels are timed
+tree's kernels into the tree's ``build/``) and its three kernels are timed
 on the probe scripts' inputs: through the wrapper (``bench.timed_device``:
 32 calls back to back) and alone (the kernel's device time, read from
 ``torch.profiler`` over 20 wrapper calls).  A configuration that a tree's
@@ -21,13 +22,14 @@ import os
 import subprocess
 import sys
 
-# (space, rows, chains) of probe_scalar, and (iterations, 4 KiB tables) of
-# probe_gather.  Shared memory at 256 rows is the one configuration of the
-# shared space that a one-block kernel takes.
+# (space, rows, chains) of probe_scalar, (iterations, 4 KiB tables) of
+# probe_gather and iterations of probe_taa.  Shared memory at 256 rows is
+# the one configuration of the shared space that a one-block kernel takes.
 SCALAR = ([("shared", 4096, c) for c in (1, 2, 4, 8, 16)]
           + [("shared", 256, c) for c in (1, 16)]
           + [("global", 4096, c) for c in (1, 16)])
 GATHER = ((256, 9), (512, 1))
+TAA = (2048, 1)
 
 CHILD = r'''
 import subprocess, sys
@@ -36,7 +38,7 @@ from torch.profiler import ProfilerActivity, profile
 from minlz_tpu_torch.bench import timed_device
 from minlz_tpu_torch.ops import probe
 
-label, steps, iters, scalar, gather = sys.argv[1:6]
+label, steps, iters, scalar, gather, taa = sys.argv[1:7]
 steps, iters = int(steps), int(iters)
 card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                        "--format=csv,noheader"], capture_output=True,
@@ -92,6 +94,14 @@ for item in gather.split(";"):
     print(f"{label} probe_gather {n_iters} x 1024 from {vregs * 1024} words: "
           f"{plan('probe_gather')}: wrapper {wrapper:.4f} ms (chained), "
           f"alone {alone:.4f} ms  [{card}]", flush=True)
+for item in taa.split(";"):
+    n_iters = int(item)
+    args = cuda(*probe.taa_inputs(n_iters, wrap=True))
+    wrapper = timed_device(probe.probe_taa, args, iters)[0] * 1e3
+    alone = alone_ms(lambda: probe.probe_taa(*args), "probe_taa_kernel")
+    print(f"{label} probe_taa {n_iters} x 1024 in-row gathers: "
+          f"{plan('probe_taa')}: wrapper {wrapper:.4f} ms (chained), "
+          f"alone {alone:.4f} ms  [{card}]", flush=True)
 '''
 
 
@@ -100,10 +110,11 @@ def run_tree(tree: str, label: str, steps: int, iters: int) -> int:
     code."""
     scalar = ";".join(f"{s},{r},{c}" for s, r, c in SCALAR)
     gather = ";".join(f"{n},{v}" for n, v in GATHER)
+    taa = ";".join(str(n) for n in TAA)
     env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
     return subprocess.run(
         [sys.executable, "-c", CHILD, label, str(steps), str(iters), scalar,
-         gather], cwd=tree, env=env).returncode
+         gather, taa], cwd=tree, env=env).returncode
 
 
 def main(argv=None) -> int:

@@ -708,6 +708,52 @@ def test_probe_taa_kernel_matches_plain():
     _same(probe.probe_taa(a, idx), probe.probe_taa_plain(a, idx))
 
 
+def _taa_wild(n_iters):
+    """taa_inputs(n_iters, wrap=True) (full-range words, so the sums wrap)
+    with every seventh position a full-range int32, clamped to 0 or 127."""
+    from minlz_tpu_torch.ops import probe
+
+    a, idx = probe.taa_inputs(n_iters, wrap=True)
+    flat = idx.reshape(-1)
+    flat[::7] = probe._fill(flat[::7].shape, 40 + n_iters)
+    return _cuda(a, idx)
+
+
+@pytest.mark.parametrize("n_iters", [0, 1, 37, 2048])
+def test_probe_taa_kernel_at_every_split(n_iters):
+    """No iteration (zeros), one (a block does it all), a ragged count and
+    the script's 2048 (16 a block over 128 blocks), twice each: the second
+    launch finds its tickets reset."""
+    from minlz_tpu_torch.ops import probe
+
+    a, idx = _taa_wild(n_iters)
+    want = probe.probe_taa_plain(a, idx)
+    for _ in range(2):
+        _same(probe.probe_taa(a, idx), want)
+    assert probe.LAUNCHED["probe_taa"] == probe.gather_plan(n_iters, 0)
+    if n_iters == 2048:
+        assert probe.LAUNCHED["probe_taa"][:2] == (128, 8)
+
+
+def test_gathers_share_their_tickets_on_a_stream():
+    """probe_gather and probe_taa in turn on one stream, four times each,
+    on the one set of tickets: every launch leaves them at zero."""
+    from minlz_tpu_torch.ops import probe
+
+    tbl, g_idx = _cuda(*probe.gather_inputs(257, 9, wrap=True))
+    a, t_idx = _taa_wild(2048)
+    g_want = probe.probe_gather_plain(tbl, g_idx)
+    t_want = probe.probe_taa_plain(a, t_idx)
+    got = []
+    for _ in range(4):
+        got.append((probe.probe_gather(tbl, g_idx), g_want))
+        got.append((probe.probe_taa(a, t_idx), t_want))
+    for out, want in got:
+        _same(out, want)
+    tickets = probe.gather_tickets(a.device, probe._build.stream_of(a))
+    assert not tickets.any()
+
+
 @pytest.mark.parametrize("variant", ["full", "onewin", "norealign", "nomask",
                                      "minimal"])
 def test_ablate_kernel_matches_plain(variant):

@@ -352,7 +352,7 @@ def test_chain_body_shared_space_checks_each_region():
                                space="shared")
 
 
-# ---- probe_scalar a block or a cluster a chain, probe_gather over the card --
+# ---- probe_scalar a block or a cluster a chain, the gathers over the card --
 
 @pytest.mark.parametrize("n_chains,cluster,share",
                          [(1, 16, 256), (2, 8, 256), (4, 4, 256),
@@ -460,14 +460,14 @@ def test_scalar_cluster_walk_matches_plain(n_chains, rows, cluster, inputs):
         want)
 
 
-def gather_model(tbl, idx, plan):
-    """probe_gather's split in numpy: block b sums iterations [n b / grid,
-    n (b + 1) / grid), rank q of each cluster adds slice q of the cluster's
-    sums, and the last ticket of slice q adds it over the clusters; every
-    sum mod 2^32."""
+def split_model(lookup, idx, plan):
+    """The split of probe_gather and probe_taa in numpy: ``lookup`` maps an
+    iteration's indices [n_iters, 1024] (int64) to their words; block b
+    sums iterations [n b / grid, n (b + 1) / grid), rank q of each cluster
+    adds slice q of the cluster's sums, and the last ticket of slice q adds
+    it over the clusters; every sum mod 2^32."""
     n = idx.shape[0] // 8
-    picked = tbl.reshape(-1).astype(np.int64)[
-        np.clip(idx, 0, tbl.size - 1)].reshape(n, -1)
+    picked = lookup(idx.astype(np.int64).reshape(n, probe.GATHER_ELEMS))
     parts = np.stack([picked[n * b // plan.grid:n * (b + 1) // plan.grid]
                       .sum(0) % (1 << 32) for b in range(plan.grid)])
     clusters = parts.reshape(-1, plan.cluster, probe.GATHER_ELEMS)
@@ -478,6 +478,26 @@ def gather_model(tbl, idx, plan):
         per_cluster = clusters[:, :, cols].sum(1) % (1 << 32)
         out[cols] = per_cluster.sum(0) % (1 << 32)
     return out.astype(np.uint32).view(np.int32).reshape(8, probe.ROW_WORDS)
+
+
+def table_lookup(tbl):
+    """probe_gather's lookup: flat indices into the table, clamped."""
+    flat = tbl.reshape(-1).astype(np.int64)
+    return lambda ix: flat[np.clip(ix, 0, flat.size - 1)]
+
+
+def row_lookup(a):
+    """probe_taa's lookup as its kernel does it: element e of an iteration
+    belongs to thread e >> 2, whose warp (e >> 7) holds row e >> 7 of ``a``
+    with word 32 q + k in register q of lane k; a clamped index ix is
+    register ix >> 5 shuffled from lane ix & 31."""
+    regs = a.astype(np.int64).reshape(8, 4, 32)
+    warp = (np.arange(probe.GATHER_ELEMS) >> 7)[None, :]
+
+    def look(ix):
+        ix = np.clip(ix, 0, probe.ROW_WORDS - 1)
+        return regs[warp, ix >> 5, ix & 31]
+    return look
 
 
 @pytest.mark.parametrize("n_iters", [1, 3, 37, 257])
@@ -493,9 +513,40 @@ def test_gather_split_matches_plain(tbl_rows, n_iters):
     idx = g.integers(-9, tbl.size + 9, (8 * n_iters, probe.ROW_WORDS),
                      dtype=np.int32)
     want = probe.probe_gather_plain(T(tbl), T(idx)).numpy()
-    np.testing.assert_array_equal(gather_model(tbl, idx, plan), want)
+    np.testing.assert_array_equal(split_model(table_lookup(tbl), idx, plan),
+                                  want)
     np.testing.assert_array_equal(probe.probe_gather(T(tbl), T(idx)).numpy(),
                                   want)
+
+
+@pytest.mark.parametrize("n_iters", [0, 1, 3, 37, 257])
+def test_taa_split_matches_plain(n_iters):
+    """probe_taa on gather_plan's grid with no table: ragged iteration
+    counts (none at all gives zeros), the in-warp lookup from registers,
+    partial sums merged with int32 wrap, positions clamped from below 0 and
+    past the row."""
+    plan = probe.gather_plan(n_iters, 0)
+    assert plan.shared_bytes == 4 * probe.GATHER_ELEMS
+    g = np.random.default_rng(100 + n_iters)
+    a = probe._fill((8, probe.ROW_WORDS), 30 + n_iters)
+    idx = g.integers(-9, probe.ROW_WORDS + 9, (8 * n_iters, probe.ROW_WORDS),
+                     dtype=np.int32)
+    if n_iters:
+        assert (idx < 0).any() and (idx >= probe.ROW_WORDS).any()
+    want = probe.probe_taa_plain(T(a), T(idx)).numpy()
+    assert want.shape == (8, probe.ROW_WORDS)
+    if not n_iters:
+        assert not want.any()
+    np.testing.assert_array_equal(split_model(row_lookup(a), idx, plan), want)
+    np.testing.assert_array_equal(probe.probe_taa(T(a), T(idx)).numpy(), want)
+
+
+def test_taa_plan_at_2048_iterations():
+    """The script's 2048 iterations: 16 clusters of 8 blocks, 16 contiguous
+    iterations a block, only the 1024 sums in shared memory."""
+    plan = probe.gather_plan(2048, 0)
+    assert plan == (128, 8, 0, 4 * 1024)
+    assert 2048 // plan.grid == 16
 
 
 def test_gather_plan_spreads_over_the_card():
