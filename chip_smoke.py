@@ -55,6 +55,11 @@ The mesh path writes the corpus through Writer(mesh=...) on one NCCL rank
 stream's; the mesh encode is timed with its all-gathers' share, the same
 Writer runs on one and on two gloo ranks sharing the card ("time mesh"
 lines), and dryrun_multichip runs its five phases on every card over NCCL.
+The api path calls the port's functions under the JAX package's names on
+the card, each held to its plain version: parse_segments_scan (K1, then
+its records laid out at the scan's rows) on the decode batch,
+decode_segments_jnp on 256 one-segment blocks and
+encode_kernel.greedy_parse (K8) on the encode batch ("time api" lines).
 The search path writes the corpus, with patterns planted, through
 Writer(search_table=SearchTableConfig()) (tables built on the card by
 build_tables_device), reads it back, holds every block's table and a
@@ -108,6 +113,7 @@ BENCH_MB = 8            # minlz_tpu_torch.bench.main's corpus
 # and ablate_exec.py of the port): (rows of the buffer, where it is walked).
 PARSE_LANES = 2048       # lanes of the "time parse" inputs: the corpus batch's
 PLAIN_LANES = 64         # lanes of them held against the plain version
+API_PIECES = 256         # 4 KiB one-segment blocks for decode_segments_jnp
 PROBE_SPACES = (("shared", 256), ("global", 4096))
 SCALAR_STEPS, SCALAR_CHAINS = 8192, (1, 2, 4, 8, 16)
 # probe_scalar walks the JAX script's 4096 rows in both spaces: in the
@@ -348,6 +354,9 @@ def round_trip(label, corpus, dev, clamp=True, block_size=MB,
     from minlz_tpu_torch.stream import Reader, Writer
 
     n = -(-len(corpus) // block_size)
+    # The Writer and the Reader share the process's codec on the card.
+    codec = device_codec.get_device_codec(dev)
+    enc0, dec0 = codec.blocks_encoded, codec.blocks_decoded
     _build.reset_launches()
     buf = io.BytesIO()
     clamp_range = device_codec.RANGE
@@ -370,10 +379,13 @@ def round_trip(label, corpus, dev, clamp=True, block_size=MB,
     if Reader(io.BytesIO(stream), device=None).readall() != corpus:
         raise AssertionError(f"{label}: the host Reader cannot read the "
                              f"port's stream")
-    if w.codec.blocks_encoded != n or r.codec.blocks_decoded != n:
+    encoded = codec.blocks_encoded - enc0
+    decoded = codec.blocks_decoded - dec0
+    if w.codec is not codec or r.codec is not codec or encoded != n \
+            or decoded != n:
         raise AssertionError(
-            f"{label}: device blocks: {w.codec.blocks_encoded} encoded, "
-            f"{r.codec.blocks_decoded} decoded, want {n} of {n}")
+            f"{label}: device blocks: {encoded} encoded, {decoded} "
+            f"decoded, want {n} of {n}")
     log(f"main path ({label}): {len(corpus) // MB} MiB -> {len(stream)} "
         f"bytes (ratio {len(stream) / len(corpus):.4f}); {n} of {n} blocks "
         f"encoded and {n} of {n} decoded on the device; launches {launches}")
@@ -1148,10 +1160,11 @@ def search_path(corpus, dev, card):
     _build.reset_launches()
     stream = write(True)
     r = Reader(io.BytesIO(stream), device=dev)
+    before = r.codec.blocks_decoded
     back = r.readall()
     torch.cuda.synchronize()
     launches = _build.launch_counts()
-    if back != data or r.codec.blocks_decoded != n:
+    if back != data or r.codec.blocks_decoded - before != n:
         raise AssertionError("the search stream did not round-trip on the "
                              "device")
     chunks = {0x45: 0, 0x46: 0}
@@ -1327,24 +1340,37 @@ def cli_path(corpus, dev, card):
                 raise AssertionError(f"mz s -c {pat!r}: {got}, want "
                                      f"{data.count(pat)}")
 
+        # The Reader and Writer take the process's codec on their device
+        # (get_device_codec): the host route asks for none and builds none,
+        # the card route's d asks for one.
+        from minlz_tpu_torch.ops import device_codec as dcm
+
         built, real_init = [], DeviceCodec.__init__
+        asked, real_get = [], dcm.get_device_codec
 
         def counted(self, *args, **kwargs):
             built.append(args)
             real_init(self, *args, **kwargs)
 
+        def counted_get(*args, **kwargs):
+            asked.append(args)
+            return real_get(*args, **kwargs)
+
         DeviceCodec.__init__ = counted
+        dcm.get_device_codec = counted_get
         try:
             mz(["c", "-2", src, "-o", mzf + ".host"], device=None)
             mz(["d", mzf + ".host", "-o", src + ".host"], device=None)
-            host_built = len(built)
+            host_built, host_asked = len(built), len(asked)
             mz(["d", mzf + ".host", "-o", src + ".host"])
         finally:
             DeviceCodec.__init__ = real_init
-        if host_built != 0 or len(built) != 1:
-            raise AssertionError(f"{host_built} DeviceCodec built by mz c "
-                                 f"and mz d on the host route, {len(built)} "
-                                 f"with the card route's d after them")
+            dcm.get_device_codec = real_get
+        if host_built or host_asked or len(asked) != 1:
+            raise AssertionError(
+                f"mz c and mz d on the host route built {host_built} "
+                f"DeviceCodec and asked for {host_asked}; the card route's d "
+                f"after them asked for {len(asked) - host_asked}, want 1")
         if read(src + ".host") != corpus:
             raise AssertionError("mz c / mz d on the host did not round-trip")
 
@@ -1392,6 +1418,70 @@ def cli_path(corpus, dev, card):
         f"{len(PLANTED)} planted patterns as often as bytes.count; mz c and "
         f"mz d on the host route built no DeviceCodec; launches {launches}; "
         f"the path took {time.perf_counter() - t_path:.1f} s")
+    return launches
+
+
+def api_path(batch_segs, g_off, g_len, corpus, dev, card):
+    """The JAX package's names on the card, each held to its plain version
+    (tolerance 0): parse_segments_scan on the decode batch's segments (all
+    seven [P, lanes] arrays), decode_segments_jnp on 1 MiB of the corpus as
+    4 KiB blocks of one segment each (== the CPU's bytes == the input) and
+    encode_kernel.greedy_parse on the encode batch's proposals.  The launch
+    counts are set to 0 just before and read just after.  Returns them."""
+    from minlz_tpu_torch import _build
+    from minlz_tpu_torch.ops import decode_kernel as dk
+    from minlz_tpu_torch.ops import encode_kernel as ek
+    from minlz_tpu_torch.ops import greedy as tg
+    from minlz_tpu_torch.oracle.decode import parse_header
+
+    mat, lens = dk.pack_matrix(batch_segs)
+    m, ln = torch.from_numpy(mat).to(dev), torch.from_numpy(lens).to(dev)
+    pieces = [corpus[i * SEG:(i + 1) * SEG] for i in range(API_PIECES)]
+    encoded = ek.encode_blocks_device(pieces, SEG, 0, LEVEL, dev)
+    kept = [(p, b) for p, (b, _) in zip(pieces, encoded) if b is not None]
+    one_segs = [b[parse_header(b)[2]:] for _, b in kept]
+    torch.cuda.synchronize()
+
+    _build.reset_launches()
+    scan, scan_ms = once_ms(lambda: dk.parse_segments_scan(m, ln))
+    dec, dec_ms = once_ms(lambda: dk.decode_segments_jnp(
+        one_segs, [SEG] * len(one_segs), dev))
+    greedy, greedy_ms = once_ms(lambda: ek.greedy_parse(g_off, g_len, SEG))
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    for count in ("parse", "greedy"):
+        if launches[count] <= 0:
+            raise AssertionError(f"kernel {count} never ran on the api path")
+
+    scan_p, scan_p_ms = once_ms(lambda: dk.parse_segments_scan_plain(m, ln))
+    for name, got, want in zip(("kind", "dst", "clen", "csrc", "lsrc",
+                                "llen", "lacc"), scan, scan_p):
+        require_equal(f"parse_segments_scan {name}", got, want)
+    t0 = time.perf_counter()
+    dec_p = dk.decode_segments_jnp(one_segs, [SEG] * len(one_segs), "cpu")
+    dec_p_ms = (time.perf_counter() - t0) * 1e3
+    if dec != dec_p or dec != [p for p, _ in kept]:
+        raise AssertionError("decode_segments_jnp on the card differs from "
+                             "the CPU's or from the input")
+    greedy_p, greedy_p_ms = once_ms(
+        lambda: tg.greedy_parse_plain(g_off, g_len, SEG))
+    for name, got, want in zip(("take", "tok_off", "tok_len", "is_rep"),
+                               greedy, greedy_p):
+        require_equal(f"encode_kernel.greedy_parse {name}", got, want)
+    records = int((scan[0] > 0).sum())
+    log(f"main path (api): parse_segments_scan on {mat.shape[1]} lanes x "
+        f"{mat.shape[0]} rows ({records} records at their rows), "
+        f"decode_segments_jnp on {len(one_segs)} one-segment blocks, "
+        f"encode_kernel.greedy_parse on {g_off.shape[0]} lanes == their "
+        f"plain versions (tolerance 0: integers and bytes); launches "
+        f"{launches}")
+    for label, ms, plain in (
+            ("parse_segments_scan (K1, then the layout)", scan_ms,
+             scan_p_ms),
+            ("decode_segments_jnp (host bytes in/out)", dec_ms, dec_p_ms),
+            ("encode_kernel.greedy_parse (K8)", greedy_ms, greedy_p_ms)):
+        log(f"time api {label}: {ms:.4f} ms once, plain version "
+            f"{plain:.4f} ms  [{card}]")
     return launches
 
 
@@ -1872,6 +1962,11 @@ def main():
     log(f"encode_block_device(serializer=\"greedy\"): 1 MiB -> "
         f"{len(gblock)} bytes, {len(ghints)} segments, decoded by the "
         f"oracle (serializer=\"native\": {len(nblock)} bytes)")
+
+    # ---- 7a. the JAX package's names: scan parse, reference decoder ------
+    path_launches["api"] = api_path(
+        [s for e in enc for s in segments(*e)], g_off, g_len, corpus, dev,
+        card)
 
     # ---- 7b. the probe kernels against their plain versions --------------
     p_err, p_ms, p_plain, p_bounds = compare_probes(dev, card)

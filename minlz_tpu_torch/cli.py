@@ -94,12 +94,13 @@ def _is_raw_block(head: bytes) -> bool:
     return head[:1] == b"\x00" and not head.startswith(minlz.MAGIC_CHUNK)
 
 
-def _on_card(codec) -> str:
+def _on_card(codec, before: int) -> str:
     """The tail of ``d``'s line on the card route: the blocks the card
-    decoded."""
+    decoded for this file (the codec is the process's on its device, and
+    had decoded ``before`` blocks when the file was opened)."""
     if codec is None:
         return ""
-    return f", {codec.blocks_decoded} blocks on {codec.device}"
+    return f", {codec.blocks_decoded - before} blocks on {codec.device}"
 
 
 def _read_input(path: str) -> bytes:
@@ -309,7 +310,7 @@ def cmd_decompress(args, to_stdout=False) -> int:
         head = src.read(16)
         src.seek(0)
         raw_len = None
-        codec = None
+        codec, before = None, 0
         if path.endswith(".mzb") or _is_raw_block(head):
             if args.device is not None:
                 src.close()
@@ -326,6 +327,7 @@ def cmd_decompress(args, to_stdout=False) -> int:
                 # downloads the whole object (reference shttp).
                 rs = ReadSeeker(src, device=args.device)
                 codec = rs.codec
+                before = codec.blocks_decoded if codec is not None else 0
                 if args.tail is not None:
                     start = max(rs._index.total_uncompressed - tail, 0)
                 else:
@@ -353,8 +355,9 @@ def cmd_decompress(args, to_stdout=False) -> int:
 
                 with ReadaheadReader(src) as ra:
                     r = Reader(ra, device=args.device)
+                    codec = r.codec
+                    before = codec.blocks_decoded if codec is not None else 0
                     data = r.readall()
-                codec = r.codec
                 if args.limit:
                     data = data[: args.limit]
         if raw_len is None:
@@ -373,7 +376,8 @@ def cmd_decompress(args, to_stdout=False) -> int:
             f.write(data)
         print(
             f"{path}: {raw_len} -> {len(data)} bytes"
-            f" ({len(data) / max(dt, 1e-9) / 1e6:.0f} MB/s{_on_card(codec)})",
+            f" ({len(data) / max(dt, 1e-9) / 1e6:.0f} MB/s"
+            f"{_on_card(codec, before)})",
             file=sys.stderr,
         )
     return 0

@@ -17,6 +17,8 @@ of its block.
 
 from __future__ import annotations
 
+import threading
+
 from .._device import resolve_device
 from ..minlz import CorruptError, put_uvarint, read_uvarint
 
@@ -91,7 +93,9 @@ class DeviceCodec:
 
     ``blocks_encoded`` / ``blocks_decoded`` count the blocks that went
     through the device match finder and the device decoder, on either
-    decode road (range-parallel or whole-block).
+    decode road (range-parallel or whole-block).  The stream Reader and
+    Writer share one codec a device (``get_device_codec``), so there the
+    counts are the process's on that device.
     """
 
     def __init__(self, device="cuda"):
@@ -283,3 +287,19 @@ class DeviceCodec:
                 out[i] = r
         self.blocks_decoded += len(items)
         return out
+
+
+_codecs = {}
+_codecs_lock = threading.Lock()
+
+
+def get_device_codec(device="cuda") -> DeviceCodec:
+    """The process's codec on ``device`` (one a device, made at first use),
+    which the stream Reader and Writer share, as the JAX package's
+    ``get_device_codec`` is shared."""
+    dev = resolve_device(device)
+    with _codecs_lock:
+        codec = _codecs.get(dev)
+        if codec is None:
+            codec = _codecs[dev] = DeviceCodec(dev)
+    return codec

@@ -12,6 +12,9 @@ default) is the host C++ ``parse_serialize`` of ``native.codec`` and raises
 when the native library did not build; ``serializer="greedy"`` is the device
 greedy parse (``greedy.greedy_parse_compact``) followed by the host Python
 ``serialize_block``.  Nothing switches from one to the other by itself.
+
+``greedy_parse`` and ``greedy_parse_compact`` are ``ops/greedy.py``'s (the
+greedy kernel, ``csrc/greedy.cu``), named here as the JAX module names them.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from ..native.build import build_error
 from ..native.codec import get_codec
 from ..oracle import encode as oenc
 from .device_codec import SEG, WINDOW
+from .greedy import greedy_parse, greedy_parse_compact  # noqa: F401
 
 _HASH_BITS = 17
 _POS_BITS = 14
@@ -221,6 +225,17 @@ def find_matches_dyn(data, n, seg: int = SEG, rng: int = 0, level: int = 2):
     best_len = torch.where(best_len >= 4, best_len, 0)
     best_dist = torch.where(best_len >= 4, best_dist, 0)
     return best_dist, best_len
+
+
+def find_matches(data_flat, n: int, seg: int = SEG, rng: int = 0,
+                 level: int = 2):
+    """``find_matches_dyn`` for one block of a fixed length, as the JAX
+    ``find_matches`` (its jit-cached wrapper for static sizes) takes and
+    returns it: data_flat [1, N] bytes, n an int; returns (dist, length),
+    [1, N] int32.  torch runs eagerly, so there is no compiled graph to
+    cache."""
+    dist, length = find_matches_dyn(data_flat, [int(n)], seg, rng, level)
+    return dist.to(torch.int32), length.to(torch.int32)
 
 
 def serialize_block(data: bytes, pos, off, ln, is_rep, count,
@@ -431,8 +446,6 @@ def encode_block_device(data: bytes, seg: int = SEG, rng: int = 0,
     if codec is not None:
         dist = dist.to(torch.int32).cpu().numpy()[0, :n]
         return _serialize(codec, data, dist, seg, rng, level)
-    from .greedy import greedy_parse_compact
-
     nrows = N // seg
     pos, off, ln, isrep, count = greedy_parse_compact(
         dist.to(torch.int32).reshape(nrows, seg),

@@ -606,6 +606,22 @@ def execute_scheduled_plain(drec, range_first, range_out, range_span, comp,
 
 
 # --------------------------------------------------------------------------
+# The JAX package's names of the range road's steps
+# --------------------------------------------------------------------------
+#
+# The JAX functions of these names take and return the TPU arena's layout:
+# per-row records [P, sub, 128], per-chain op lists of cap_chain slots in
+# OP_T tiles, three packed words a record (512-byte arena rows, 14- and
+# 17-bit fields), an int32 arena with a guard row.  None of that carries
+# over (module docstring), so each name here is the port's step, on the
+# port's layout: the same records unpacked, and the same decoded bytes.
+
+compact_ops_fast = compact_records        # kernel 2, positioned records
+compact_ops_dense = compact_records_dense  # kernel 6, append-only records
+execute_fast = execute_ranges             # kernel 3, the range executor
+
+
+# --------------------------------------------------------------------------
 # Batched decode entry points
 # --------------------------------------------------------------------------
 

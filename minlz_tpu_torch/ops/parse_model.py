@@ -7,7 +7,8 @@ module states that algorithm in torch ops, with the window size as an
 argument, so that small inputs cross many windows; the tests hold it equal
 to ``parse_segments_plain`` on every field, and the card run reads its counts
 (tokens, windows) beside the kernel's time.  Nothing on a decode path calls
-it.
+it; ``decode_kernel.scan_layout`` uses its token table (``decode``) and
+``token_events`` to put K1's records at the rows of the JAX scan.
 
 1. **Table.**  For every byte offset i of a lane, the token that would start
    there: its kind, header length h (1-7 bytes: a Copy3's length-extension
@@ -54,7 +55,7 @@ OP_LIT, OP_COPY = 1, 2
 _I64 = torch.int64
 
 
-def _wrap32(x):
+def wrap32(x):
     """int64 -> the int32 value with the same low 32 bits (as int64)."""
     return torch.remainder(x + (1 << 31), 1 << 32) - (1 << 31)
 
@@ -161,6 +162,33 @@ def chain(nxt, lane_start, lane_len, window: int):
     return lane[order], off[order], wid[order]
 
 
+def token_events(t, lane, lanes: int) -> dict:
+    """What each token emits.  t: ``decode``'s fields of the tokens, lane:
+    each one's lane (lane-major, chain order, as ``chain`` gives them).
+    Returns [n] tensors ``first`` (the lane's first token), ``prev`` (the
+    token before, 0 for the first), ``held`` (the token before is a literal
+    run of the same lane, held), ``ok`` (the header is in the lane),
+    ``lit_prev`` (it emits the held run alone first), ``own`` (it emits its
+    own record), and [lanes] tensors ``last_ok`` (the lane's last complete
+    token, -1 for none) and ``flush`` (that token is a literal run, whose
+    held run the flush row emits)."""
+    n = lane.numel()
+    idx = torch.arange(n, device=lane.device)
+    first = torch.ones(n, dtype=torch.bool, device=lane.device)
+    first[1:] = lane[1:] != lane[:-1]
+    prev = (idx - 1).clamp(min=0)
+    held = ~first & t["lit"][prev]
+    ok = t["complete"]
+    last_ok = torch.full((lanes,), -1, dtype=_I64, device=lane.device)
+    last_ok.scatter_reduce_(0, lane[ok], idx[ok], "amax")
+    flush = last_ok >= 0
+    flush[flush.clone()] = t["lit"][last_ok[flush]]
+    return {"first": first, "prev": prev, "held": held, "ok": ok,
+            "lit_prev": ok & held & (t["lit"] | t["pend"]),
+            "own": ok & (t["imm"] | (t["pend"] & t["done"])),
+            "last_ok": last_ok, "flush": flush}
+
+
 def _last_set(flag, value, first_of_seg):
     """Exclusive carry-forward within segments: for each element, the value
     of the last earlier element of its segment with ``flag``, and whether
@@ -217,13 +245,9 @@ def parse_segments_model(comp, lane_start, lane_len, window: int = WINDOW):
         info["max_tokens"] = int(torch.bincount(seg_id).max())
 
     # 3. Per token: the held run before it and what it emits.
-    first_of_lane = torch.ones(n, dtype=torch.bool, device=dev)
-    first_of_lane[1:] = lane[1:] != lane[:-1]
-    prev = (torch.arange(n, device=dev) - 1).clamp(min=0)
-    held = ~first_of_lane & t["lit"][prev]
-    ok = t["complete"]
-    lit_prev = ok & held & (t["lit"] | t["pend"])
-    own = ok & (t["imm"] | (t["pend"] & t["done"]))
+    ev = token_events(t, lane, lanes)
+    prev, held, ok = ev["prev"], ev["held"], ev["ok"]
+    lit_prev, own = ev["lit_prev"], ev["own"]
     cnt = lit_prev.to(_I64) + own.to(_I64)
     phase = ok & (t["lit"] | t["pend"])
     sets = ok & t["sets"]
@@ -281,12 +305,8 @@ def parse_segments_model(comp, lane_start, lane_len, window: int = WINDOW):
 
     # The flush row: the held run of a lane whose last complete token is a
     # literal run.
-    last_ok = torch.full((lanes,), -1, dtype=_I64, device=dev)
-    idx = torch.arange(n, device=dev)
-    last_ok.scatter_reduce_(0, lane[ok], idx[ok], "amax")
-    flush = last_ok >= 0
-    flush[flush.clone()] = t["lit"][last_ok[flush]]
-    j = last_ok[flush]
+    flush = ev["flush"]
+    j = ev["last_ok"][flush]
     lf = torch.nonzero(flush)[:, 0]
     rec_flush = torch.stack([
         torch.full_like(j, OP_LIT), d[j], torch.zeros_like(j),
@@ -298,7 +318,7 @@ def parse_segments_model(comp, lane_start, lane_len, window: int = WINDOW):
             (lit_prev, rec_lit, k),
             (own, rec_own, k + lit_prev.to(_I64)),
     ):
-        recs[:, slot0[lane[sel]] + at_slot[sel]] = _wrap32(
+        recs[:, slot0[lane[sel]] + at_slot[sel]] = wrap32(
             rows[:, sel]).to(torch.int32)
-    recs[:, slot0[lf] + c_n[lf]] = _wrap32(rec_flush).to(torch.int32)
+    recs[:, slot0[lf] + c_n[lf]] = wrap32(rec_flush).to(torch.int32)
     return recs, counts.to(torch.int32), info

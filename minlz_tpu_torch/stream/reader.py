@@ -78,9 +78,9 @@ class Reader:
         self._backend = decoder_backend
         self._device = device
         if device is not None:
-            from ..ops.device_codec import DeviceCodec
+            from ..ops.device_codec import get_device_codec
 
-            self._device_codec = DeviceCodec(device)
+            self._device_codec = get_device_codec(device)
         else:
             self._device_codec = None
         self._pending_hints = None

@@ -143,9 +143,9 @@ class Writer:
         # (reference debugValidateBlocks, encode.go:108).
         self._debug_validate = debug_validate
         if device is not None:
-            from ..ops.device_codec import DeviceCodec
+            from ..ops.device_codec import get_device_codec
 
-            self._device_codec = DeviceCodec(device)
+            self._device_codec = get_device_codec(device)
             if mesh is not None and mesh.device != self._device_codec.device:
                 raise ValueError(f"device {self._device_codec.device} is not "
                                  f"the mesh's {mesh.device}")

@@ -972,7 +972,8 @@ def test_mesh_writer_on_card(twain):
         w.write(payload)
     assert stream == buf.getvalue()
     r = Reader(io.BytesIO(stream), device="cuda")
-    assert r.readall() == payload and r.codec.blocks_decoded == 4
+    before = r.codec.blocks_decoded
+    assert r.readall() == payload and r.codec.blocks_decoded - before == 4
 
 
 def test_cli_device_round_trip_on_card(tmp_path, monkeypatch):
@@ -1032,3 +1033,72 @@ def test_cli_card_is_the_default_route(tmp_path, monkeypatch):
                  str(out), str(mz)]) == 0
     assert out.read_bytes() == data[start:start + (2 << 20)]
     assert seen == [("cuda", 1)] * 3
+
+
+# ---- the JAX package's names: scan parse, reference decoder, greedy --------
+
+def _scan_segments(segs):
+    """The batch's first 24 segments and mutated copies of 8 of them."""
+    from minlz_tpu_torch.testing import mutate
+
+    lanes = [s for blk in segs for s in blk][:24]
+    rng = np.random.default_rng(17)
+    for s in lanes[:8]:
+        lanes.append(mutate(rng, mutate(rng, s)))
+    return lanes
+
+
+def test_parse_segments_scan_on_card_matches_plain(stages):
+    """The parse kernel's records laid out at their rows, all seven [P, B]
+    arrays, against the row-by-row scan; the kernel launches once."""
+    from minlz_tpu_torch import _build
+    from minlz_tpu_torch.ops import decode_kernel as tdk
+
+    mat, lens = tdk.pack_matrix(_scan_segments(stages[1]))
+    before = _build.launch_counts()["parse"]
+    got = tdk.parse_segments_scan(torch.from_numpy(mat).cuda(),
+                                  torch.from_numpy(lens).cuda())
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["parse"] == before + 1
+    want = tdk.parse_segments_scan_plain(torch.from_numpy(mat),
+                                         torch.from_numpy(lens))
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g.cpu(), w)
+    assert int((want[0] > 0).sum()) > 1000
+
+
+def test_decode_segments_jnp_on_card(twain):
+    """Segments that decode on their own: the card's scan parse and the
+    CPU's give the same bytes, the input's."""
+    from minlz_tpu_torch.ops import decode_kernel as tdk
+    from test_torch_common import encode_segs
+
+    _need_gpu()
+    data = (twain * 3)[: 64 << 10]
+    pieces = [data[i:i + 4096] for i in range(0, len(data), 4096)]
+    segs = [encode_segs(p, 4096, 0)[0] for p in pieces]
+    sizes = [len(p) for p in pieces]
+    got = tdk.decode_segments_jnp(segs, sizes, "cuda")
+    assert got == pieces
+    assert got == tdk.decode_segments_jnp(segs, sizes, "cpu")
+
+
+def test_greedy_parse_jax_name_on_card():
+    """encode_kernel.greedy_parse on CUDA tensors launches the greedy
+    kernel and equals its plain version."""
+    from minlz_tpu_torch import _build
+    from minlz_tpu_torch.ops import encode_kernel as tek
+    from minlz_tpu_torch.ops import greedy as tg
+    from test_torch_common import random_proposals
+
+    _need_gpu()
+    off, length = random_proposals(31, 64, 4096, hostile=True)
+    before = _build.launch_counts()["greedy"]
+    got = tek.greedy_parse(torch.from_numpy(off).cuda(),
+                           torch.from_numpy(length).cuda(), 4096)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["greedy"] == before + 1
+    want = tg.greedy_parse_plain(torch.from_numpy(off),
+                                 torch.from_numpy(length), 4096)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
