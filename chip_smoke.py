@@ -9,7 +9,14 @@ the serializer path (match finder on the card, native host serializer), the
 all-device path (Writer(device_emit=True): match find, greedy parse, verify
 and token emission on the card) and the unclamped path (the serializer path
 without the encoder's range clamp, so that the Reader decodes every block on
-the whole-block road).  The fourth sends the clamped stream's blocks through
+the whole-block road).  The seek path reads the serializer path's stream
+(written with an index) at random: ReadSeeker(device=...) reads 64 spans at
+offsets from a seeded numpy generator through seek + read and read_at,
+Reader.skip crosses three blocks, two streams written on the card are read
+concatenated and a stream with padding and a user chunk is read whole and
+through its loaded index, every read held to the corpus and every block it
+touches decoded on the card (K1, the lane offset scan, K2 and K3; "time
+seek" line).  The next path sends the clamped stream's blocks through
 decode_blocks_chained(executor="scheduled"), the append-only road.  One
 8 MiB block (16 KiB segments) goes through Writer and Reader and through
 decode_block_whole.  The five probe kernels (ops/probe.py) are held against
@@ -58,8 +65,10 @@ lines), and dryrun_multichip runs its five phases on every card over NCCL.
 The api path calls the port's functions under the JAX package's names on
 the card, each held to its plain version: parse_segments_scan (K1, then
 its records laid out at the scan's rows) on the decode batch,
-decode_segments_jnp on 256 one-segment blocks and
-encode_kernel.greedy_parse (K8) on the encode batch ("time api" lines).
+decode_segments_jnp on 256 one-segment blocks,
+encode_kernel.greedy_parse (K8) on the encode batch and
+find_matches_dyn(exact=True) on the encode batch, held to the CPU's
+proposals ("time api" lines).
 The search path writes the corpus, with patterns planted, through
 Writer(search_table=SearchTableConfig()) (tables built on the card by
 build_tables_device), reads it back, holds every block's table and a
@@ -114,6 +123,11 @@ BENCH_MB = 8            # minlz_tpu_torch.bench.main's corpus
 PARSE_LANES = 2048       # lanes of the "time parse" inputs: the corpus batch's
 PLAIN_LANES = 64         # lanes of them held against the plain version
 API_PIECES = 256         # 4 KiB one-segment blocks for decode_segments_jnp
+SEEK_SPANS = 64          # spans the seek path reads, half by seek + read and
+SEEK_SPAN = 4096         # half by read_at, each this long, at offsets from
+SEEK_SEED = 18           # numpy's default_rng(SEEK_SEED)
+SEEK_SIDE_MB = 4         # the concatenated and the padded streams
+SEEK_PADDING = 64 << 10
 PROBE_SPACES = (("shared", 256), ("global", 4096))
 SCALAR_STEPS, SCALAR_CHAINS = 8192, (1, 2, 4, 8, 16)
 # probe_scalar walks the JAX script's 4096 rows in both spaces: in the
@@ -376,6 +390,9 @@ def round_trip(label, corpus, dev, clamp=True, block_size=MB,
     launches = _build.launch_counts()
     if back != corpus:
         raise AssertionError(f"{label}: the device Reader did not round-trip")
+    if r.hint_fallbacks:
+        raise AssertionError(f"{label}: {r.hint_fallbacks} blocks' hints "
+                             f"sent them to the host")
     if Reader(io.BytesIO(stream), device=None).readall() != corpus:
         raise AssertionError(f"{label}: the host Reader cannot read the "
                              f"port's stream")
@@ -1164,17 +1181,14 @@ def search_path(corpus, dev, card):
     back = r.readall()
     torch.cuda.synchronize()
     launches = _build.launch_counts()
-    if back != data or r.codec.blocks_decoded - before != n:
+    if back != data or r.codec.blocks_decoded - before != n \
+            or r.hint_fallbacks:
         raise AssertionError("the search stream did not round-trip on the "
                              "device")
-    chunks = {0x45: 0, 0x46: 0}
-    pos = 10
-    while pos < len(stream):
-        kind = stream[pos]
-        chunks[kind] = chunks.get(kind, 0) + 1
-        pos += 4 + int.from_bytes(stream[pos + 1:pos + 4], "little")
-    if chunks[0x45] + chunks[0x46] != n:
-        raise AssertionError(f"{chunks} table chunks for {n} blocks")
+    types = [ctype for _, ctype, _ in chunks(stream)]
+    tables = {kind: types.count(kind) for kind in (0x45, 0x46)}
+    if sum(tables.values()) != n:
+        raise AssertionError(f"{tables} table chunks for {n} blocks")
 
     # Every block's table, built on the card as the Writer builds it (the
     # next block's first bytes as overlap), against the NumPy builder.
@@ -1207,7 +1221,7 @@ def search_path(corpus, dev, card):
             or s.stats.blocks_decoded >= s.stats.blocks_total:
         raise AssertionError(f"absent pattern: {vars(s.stats)}")
     log(f"main path (search): {n} MiB -> {len(stream)} bytes, {n} tables "
-        f"({chunks[0x46]} compressed 0x46, {chunks[0x45]} plain 0x45) built "
+        f"({tables[0x46]} compressed 0x46, {tables[0x45]} plain 0x45) built "
         f"on the card == NumPy builder for every block; bitmaps == NumPy "
         f"for match_len 1-8 at bits {SWEEP_BITS} on a 1 MiB block; "
         f"{len(PLANTED)} planted patterns found; an absent pattern skipped "
@@ -1421,20 +1435,23 @@ def cli_path(corpus, dev, card):
     return launches
 
 
-def api_path(batch_segs, g_off, g_len, corpus, dev, card):
+def api_path(batch_segs, g_off, g_len, enc_in, ns, corpus, dev, card):
     """The JAX package's names on the card, each held to its plain version
     (tolerance 0): parse_segments_scan on the decode batch's segments (all
     seven [P, lanes] arrays), decode_segments_jnp on 1 MiB of the corpus as
-    4 KiB blocks of one segment each (== the CPU's bytes == the input) and
-    encode_kernel.greedy_parse on the encode batch's proposals.  The launch
-    counts are set to 0 just before and read just after.  Returns them."""
+    4 KiB blocks of one segment each (== the CPU's bytes == the input),
+    encode_kernel.greedy_parse on the encode batch's proposals, and
+    find_matches_dyn(exact=True) on the encode batch (== the CPU's
+    proposals).  The launch counts are set to 0 just before and read just
+    after.  Returns them."""
     from minlz_tpu_torch import _build
     from minlz_tpu_torch.ops import decode_kernel as dk
     from minlz_tpu_torch.ops import encode_kernel as ek
     from minlz_tpu_torch.ops import greedy as tg
+    from minlz_tpu_torch.ops.device_codec import RANGE
     from minlz_tpu_torch.oracle.decode import parse_header
 
-    mat, lens = dk.pack_matrix(batch_segs)
+    mat, lens = dk.pack_segments(batch_segs)
     m, ln = torch.from_numpy(mat).to(dev), torch.from_numpy(lens).to(dev)
     pieces = [corpus[i * SEG:(i + 1) * SEG] for i in range(API_PIECES)]
     encoded = ek.encode_blocks_device(pieces, SEG, 0, LEVEL, dev)
@@ -1447,6 +1464,8 @@ def api_path(batch_segs, g_off, g_len, corpus, dev, card):
     dec, dec_ms = once_ms(lambda: dk.decode_segments_jnp(
         one_segs, [SEG] * len(one_segs), dev))
     greedy, greedy_ms = once_ms(lambda: ek.greedy_parse(g_off, g_len, SEG))
+    exact, exact_ms = once_ms(lambda: ek.find_matches_dyn(
+        enc_in, ns, SEG, RANGE, LEVEL, exact=True))
     torch.cuda.synchronize()
     launches = _build.launch_counts()
     for count in ("parse", "greedy"):
@@ -1468,20 +1487,187 @@ def api_path(batch_segs, g_off, g_len, corpus, dev, card):
     for name, got, want in zip(("take", "tok_off", "tok_len", "is_rep"),
                                greedy, greedy_p):
         require_equal(f"encode_kernel.greedy_parse {name}", got, want)
+    t0 = time.perf_counter()
+    exact_p = ek.find_matches_dyn(enc_in.cpu(), ns, SEG, RANGE, LEVEL,
+                                  exact=True)
+    exact_p_ms = (time.perf_counter() - t0) * 1e3
+    for name, got, want in zip(("dist", "length"), exact, exact_p):
+        require_equal(f"find_matches_dyn(exact=True) {name}, cuda vs cpu",
+                      got, want)
+    # exact=False and exact=True again, each once, on the same batch: the
+    # two modes' times side by side in this run.
+    hashed, hashed_ms = once_ms(lambda: ek.find_matches_dyn(
+        enc_in, ns, SEG, RANGE, LEVEL))
+    hashed = int((hashed[0] > 0).sum())
+    _, exact2_ms = once_ms(lambda: ek.find_matches_dyn(
+        enc_in, ns, SEG, RANGE, LEVEL, exact=True))
     records = int((scan[0] > 0).sum())
     log(f"main path (api): parse_segments_scan on {mat.shape[1]} lanes x "
         f"{mat.shape[0]} rows ({records} records at their rows), "
         f"decode_segments_jnp on {len(one_segs)} one-segment blocks, "
         f"encode_kernel.greedy_parse on {g_off.shape[0]} lanes == their "
-        f"plain versions (tolerance 0: integers and bytes); launches "
+        f"plain versions, find_matches_dyn(exact=True) on {len(ns)} x 1 MiB "
+        f"== the CPU's ({int((exact[0] > 0).sum())} proposals, {hashed} "
+        f"with exact=False) (tolerance 0: integers and bytes); launches "
         f"{launches}")
     for label, ms, plain in (
             ("parse_segments_scan (K1, then the layout)", scan_ms,
              scan_p_ms),
             ("decode_segments_jnp (host bytes in/out)", dec_ms, dec_p_ms),
-            ("encode_kernel.greedy_parse (K8)", greedy_ms, greedy_p_ms)):
+            ("encode_kernel.greedy_parse (K8)", greedy_ms, greedy_p_ms),
+            (f"find_matches_dyn(exact=True), {len(ns)} x 1 MiB (torch ops; "
+             f"the plain version is the CPU's)", exact_ms, exact_p_ms)):
         log(f"time api {label}: {ms:.4f} ms once, plain version "
             f"{plain:.4f} ms  [{card}]")
+    log(f"time api find_matches_dyn, {len(ns)} x 1 MiB, one call each in "
+        f"this order: exact=True {exact_ms:.4f} ms, exact=False "
+        f"{hashed_ms:.4f} ms, exact=True {exact2_ms:.4f} ms  [{card}]")
+    return launches
+
+
+def blocks_touched(off: int, n: int, block: int = MB) -> int:
+    """Blocks that a read of n bytes at off decodes."""
+    return (off + n - 1) // block - off // block + 1
+
+
+def chunks(stream: bytes):
+    """(offset, type, payload length) of every chunk of a stream, by
+    walking its chunk headers."""
+    out, pos = [], 0
+    while pos < len(stream):
+        clen = int.from_bytes(stream[pos + 1:pos + 4], "little")
+        out.append((pos, stream[pos], clen))
+        pos += 4 + clen
+    return out
+
+
+def hinted_blocks(stream: bytes) -> int:
+    """Data chunks of a stream that parse hints come before."""
+    from minlz_tpu_torch.minlz import CHUNK_TYPE_PARSE_HINT
+
+    types = [ctype for _, ctype, _ in chunks(stream)]
+    return sum(ctype in (0x02, 0x03) and prev == CHUNK_TYPE_PARSE_HINT
+               for prev, ctype in zip(types, types[1:]))
+
+
+def seek_path(stream, corpus, dev, card):
+    """Random access on the card, on the serializer path's stream (32 MiB,
+    1 MiB blocks, written with an index): ReadSeeker(device=dev) reads
+    SEEK_SPANS spans of SEEK_SPAN bytes at offsets from a seeded numpy
+    generator, half through seek + read and half through read_at; Reader.skip
+    crosses three blocks; two streams written on the card are read
+    concatenated, and a stream written with padding and a user chunk is read
+    whole and through its loaded index.  Every read is held to the corpus,
+    the codec's blocks_decoded must rise by the blocks each read touches and
+    no block may fall back to the host.  The launch counts are set to 0 just
+    before and read just after.  Returns them."""
+    from minlz_tpu_torch import _build
+    from minlz_tpu_torch.ops import device_codec
+    from minlz_tpu_torch.stream import Index, Reader, ReadSeeker, Writer
+
+    codec = device_codec.get_device_codec(dev)
+    offs = [int(o) for o in np.random.default_rng(SEEK_SEED).integers(
+        0, len(corpus) - SEEK_SPAN, SEEK_SPANS)]
+    half = SEEK_SPANS // 2
+    side = corpus[:SEEK_SIDE_MB * MB], corpus[-SEEK_SIDE_MB * MB:]
+    torch.cuda.synchronize()
+
+    _build.reset_launches()
+    dec0 = codec.blocks_decoded
+    rs = ReadSeeker(io.BytesIO(stream), device=dev)
+    seek_ms, at_ms, want = [], [], 0
+    for k, off in enumerate(offs):
+        t0 = time.perf_counter()
+        if k < half:
+            rs.seek(off)
+            got = rs.read(SEEK_SPAN)
+        else:
+            got = rs.read_at(off, SEEK_SPAN)
+        (seek_ms if k < half else at_ms).append(
+            (time.perf_counter() - t0) * 1e3)
+        if got != corpus[off:off + SEEK_SPAN]:
+            raise AssertionError(f"seek path: the span at {off} differs")
+        want += blocks_touched(off, SEEK_SPAN)
+    spans_decoded = codec.blocks_decoded - dec0
+    if spans_decoded != want or rs.hint_fallbacks:
+        raise AssertionError(
+            f"seek path: {spans_decoded} blocks decoded on the card for the "
+            f"spans, want {want}; {rs.hint_fallbacks} on the host")
+
+    r = Reader(io.BytesIO(stream), device=dev)
+    before = codec.blocks_decoded
+    skip_to = 3 * MB + 12345
+    r.skip(skip_to)
+    got = r.read(SEEK_SPAN)
+    if got != corpus[skip_to:skip_to + SEEK_SPAN] \
+            or codec.blocks_decoded - before != 1 or r.hint_fallbacks:
+        raise AssertionError("seek path: Reader.skip over three blocks did "
+                             "not decode the fourth alone on the card")
+
+    def write(data):
+        buf = io.BytesIO()
+        with Writer(buf, device=dev, level=LEVEL, block_size=MB) as w:
+            w.write(data)
+        return buf.getvalue()
+
+    one = write(side[0]) + write(side[1])
+    before = codec.blocks_decoded
+    r = Reader(io.BytesIO(one), device=dev)
+    if r.readall() != side[0] + side[1] or r.hint_fallbacks \
+            or codec.blocks_decoded - before != hinted_blocks(one):
+        raise AssertionError("seek path: the concatenated streams did not "
+                             "decode on the card")
+
+    buf = io.BytesIO()
+    with Writer(buf, device=dev, level=LEVEL, block_size=MB,
+                padding=SEEK_PADDING, add_index=True) as w:
+        w.write(side[0][:MB + MB // 2])
+        w.add_user_chunk(0x90, b"seek path user chunk")
+        w.write(side[0][MB + MB // 2:])
+    padded = buf.getvalue()
+    idx = Index.load_stream(io.BytesIO(padded))
+    seen = []
+    before = codec.blocks_decoded
+    r = Reader(io.BytesIO(padded), device=dev, user_chunk_cb={0x90:
+                                                              seen.append})
+    if len(padded) % SEEK_PADDING or idx.total_uncompressed != len(side[0]) \
+            or r.readall() != side[0] or seen != [b"seek path user chunk"] \
+            or codec.blocks_decoded - before != hinted_blocks(padded):
+        raise AssertionError("seek path: the padded stream with a user "
+                             "chunk did not read back on the card")
+    rs = ReadSeeker(io.BytesIO(padded), index=idx, device=dev)
+    before = codec.blocks_decoded
+    for off in (MB - 7, len(side[0]) - SEEK_SPAN):
+        if rs.read_at(off, SEEK_SPAN) != side[0][off:off + SEEK_SPAN]:
+            raise AssertionError(f"seek path: the padded stream's span at "
+                                 f"{off} differs")
+    if codec.blocks_decoded - before != 3 or rs.hint_fallbacks:
+        raise AssertionError("seek path: the padded stream's spans did not "
+                             "decode on the card")
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    for count in ("parse", "lane_offsets", "compact", "exec_range"):
+        if launches[count] <= 0:
+            raise AssertionError(f"kernel {count} never ran on the seek "
+                                 f"path")
+    for count in ("greedy", "exec_block", "exec_sched", "compact_dense"):
+        if launches[count] != 0:
+            raise AssertionError(f"the seek path launched {count}")
+    log(f"main path (seek): ReadSeeker(device) read {SEEK_SPANS} spans of "
+        f"{SEEK_SPAN} bytes of the {len(corpus) // MB} MiB stream ({half} "
+        f"by seek + read, {SEEK_SPANS - half} by read_at, offsets from "
+        f"default_rng({SEEK_SEED})) == corpus, {spans_decoded} blocks "
+        f"decoded on the card for them, none on the host; Reader.skip over "
+        f"3 blocks; two {SEEK_SIDE_MB} MiB streams concatenated and a "
+        f"{SEEK_SIDE_MB} MiB stream with padding {SEEK_PADDING} and a user "
+        f"chunk read back on the card; launches {launches}")
+    total_ms = sum(seek_ms) + sum(at_ms)
+    log(f"time seek: {statistics.median(seek_ms):.3f} ms a seek + read of "
+        f"{SEEK_SPAN} bytes (median of {half}, host clock, one 1 MiB block "
+        f"a dispatch), read_at {SEEK_SPAN * len(at_ms) / sum(at_ms) / 1e3:.3f}"
+        f" MB/s of span bytes ({statistics.median(at_ms):.3f} ms a call), "
+        f"{spans_decoded * MB / total_ms / 1e3:.1f} MB/s of blocks decoded "
+        f"for all {SEEK_SPANS} spans  [{card}]")
     return launches
 
 
@@ -1846,6 +2032,8 @@ def main():
     path_launches, streams = {}, {}
     path_launches["serializer"], streams["serializer"] = round_trip(
         "serializer", corpus, dev)
+    path_launches["seek"] = seek_path(streams["serializer"], corpus, dev,
+                                      card)
     path_launches["device_emit"], streams["device_emit"] = round_trip(
         "device_emit", corpus, dev, device_emit=True)
     path_launches["unclamped"], streams["unclamped"] = round_trip(
@@ -1965,8 +2153,8 @@ def main():
 
     # ---- 7a. the JAX package's names: scan parse, reference decoder ------
     path_launches["api"] = api_path(
-        [s for e in enc for s in segments(*e)], g_off, g_len, corpus, dev,
-        card)
+        [s for e in enc for s in segments(*e)], g_off, g_len, enc_in, ns,
+        corpus, dev, card)
 
     # ---- 7b. the probe kernels against their plain versions --------------
     p_err, p_ms, p_plain, p_bounds = compare_probes(dev, card)

@@ -3,7 +3,18 @@ JAX package's row layout.
 
 The counterpart of ``minlz_tpu.ops.decode_kernel``.  Two layouts live here.
 
-*The port's own* (``pack_segments``, ``execute_ops_host``,
+*The JAX package's* (``pack_segments``, ``parse_segments_scan``,
+``execute_ops_host``, ``decode_segments_jnp``), under its names and with its
+arguments: segments as the columns of a ``[P, B]`` byte matrix, and the
+parse as seven ``[P, B]`` int32 arrays, one row per compressed byte row,
+each record at the row where the transducer emits it.
+``parse_segments_scan`` runs the parse kernel ``csrc/parse.cu`` for CUDA
+tensors and then lays its records out at their rows; for CPU tensors it runs
+``parse_segments_scan_plain``, the row-by-row scan of ``ops/transducer.py``.
+``execute_ops_host`` walks each segment's records on its own, in numpy, and
+``decode_segments_jnp`` is that scan parse, then that walk.
+
+*The port's own* (``pack_lanes``, ``execute_records_host``,
 ``decode_segments``): the lanes' compressed bytes lie back to back in one
 array, and record k of lane l sits in slot ``lane_start[l] + l + k`` of the
 parse output (``ops/parse.py``).  The walk decodes a whole block: lane l
@@ -11,16 +22,6 @@ writes at ``l * seg + dst``, and a copy may read any earlier byte of the
 block.  Nothing on a decode path runs it: it is one Python step per record,
 in numpy, and shares no code with the executors of ``exec_chain.py`` and
 ``exec_block.py``, so the tests use it as their referee.
-
-*The JAX package's* (``pack_matrix``, ``parse_segments_scan``,
-``decode_segments_jnp``): segments as the columns of a ``[P, B]`` byte
-matrix, and the parse as seven ``[P, B]`` int32 arrays, one row per
-compressed byte row, each record at the row where the transducer emits it.
-``parse_segments_scan`` runs the parse kernel ``csrc/parse.cu`` for CUDA
-tensors and then lays its records out at their rows; for CPU tensors it runs
-``parse_segments_scan_plain``, the row-by-row scan of
-``ops/transducer.py``.  ``decode_segments_jnp`` keeps the JAX name of the
-reference decoder: that scan parse, then a walk of each segment on its own.
 """
 
 from __future__ import annotations
@@ -36,7 +37,12 @@ from .transducer import init_state, parse_step
 _I64 = torch.int64
 
 
-def pack_segments(seg_bytes_list):
+def _host(x):
+    """A tensor (on any device) or an array-like as a numpy array."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def pack_lanes(seg_bytes_list):
     """Pack ragged compressed segments into the parse's input: (comp [n >= 1]
     uint8, the segments back to back; lane_start [B] int32; lane_len [B]
     int32)."""
@@ -47,7 +53,7 @@ def pack_segments(seg_bytes_list):
     return comp, start.astype(np.int32), lens.astype(np.int32)
 
 
-def execute_ops_host(recs, counts, comp, lane_start, seg: int):
+def execute_records_host(recs, counts, comp, lane_start, seg: int):
     """Walk every lane's records in order.  recs [7, n_slots] / counts
     [lanes]: the parse output (kind, dst, clen, csrc, lsrc, llen, lacc), as
     numpy arrays.  Each record places its literal run (llen bytes of the
@@ -90,12 +96,12 @@ def decode_segments(seg_bytes_list, out_total: int, seg: int):
     """Decode one block from its segments on the host: the plain parse on
     the CPU, then the record walk.  Returns the block's first ``out_total``
     bytes."""
-    comp, lane_start, lane_len = pack_segments(seg_bytes_list)
+    comp, lane_start, lane_len = pack_lanes(seg_bytes_list)
     recs, counts = parse_segments_plain(
         torch.from_numpy(comp), torch.from_numpy(lane_start),
         torch.from_numpy(lane_len))
-    out = execute_ops_host(recs.numpy(), counts.numpy(), comp, lane_start,
-                           seg)
+    out = execute_records_host(recs.numpy(), counts.numpy(), comp,
+                               lane_start, seg)
     return out[:out_total]
 
 
@@ -103,9 +109,9 @@ def decode_segments(seg_bytes_list, out_total: int, seg: int):
 # The JAX package's row layout: [P, B] matrices
 # --------------------------------------------------------------------------
 
-def pack_matrix(seg_bytes_list):
-    """Pack ragged compressed segments as the JAX ``pack_segments`` does:
-    (mat [P, B] int32, column b = segment b zero padded; lens [B] int32).
+def pack_segments(seg_bytes_list):
+    """Pack ragged compressed segments into the scan's input: (mat [P, B]
+    int32, column b = segment b zero padded; lens [B] int32).
     P is the power of two above the longest segment, so every lane has its
     flush row (row == len)."""
     B = len(seg_bytes_list)
@@ -286,15 +292,18 @@ def scan_layout(recs, counts, comp, lane_start, lane_len, n_rows: int):
     return tuple(out.transpose(1, 2))
 
 
-def _execute_rows(op_kind, op_dst, op_clen, op_csrc, op_lsrc, op_llen, mat,
-                  out_lens):
-    """The JAX ``execute_ops_host``: walk each segment's records (the
-    non-zero rows of the scan layout) on its own, in numpy.  Each record
-    places its llen literal bytes (matrix rows from lsrc) at dst, then its
-    copy (clen bytes from csrc back).  Returns the decoded bytes of every
-    segment, out_lens[b] each; a copy reaching before its segment raises
-    ValueError."""
-    mat = np.asarray(mat).astype(np.uint8)
+def execute_ops_host(op_kind, op_dst, op_clen, op_csrc, op_lsrc, op_llen,
+                     mat, out_lens):
+    """Walk each segment's records (the non-zero rows of the [P, B] arrays
+    that ``parse_segments_scan`` returns; tensors or numpy arrays) on its
+    own, in numpy.  Each record places its llen literal bytes (matrix rows
+    from lsrc) at dst, then its copy (clen bytes from csrc back).  Returns
+    the decoded bytes of every segment, out_lens[b] each; a copy reaching
+    before its segment raises ValueError."""
+    op_kind, op_dst, op_clen, op_csrc, op_lsrc, op_llen = (
+        _host(x) for x in (op_kind, op_dst, op_clen, op_csrc, op_lsrc,
+                           op_llen))
+    mat = _host(mat).astype(np.uint8)
     outs = []
     for b in range(op_kind.shape[1]):
         out = np.zeros(int(out_lens[b]), dtype=np.uint8)
@@ -325,14 +334,13 @@ def _execute_rows(op_kind, op_dst, op_clen, op_csrc, op_lsrc, op_llen, mat,
 
 
 def decode_segments_jnp(seg_bytes_list, out_lens, device="cuda"):
-    """Decode a batch of segments, each on its own: ``pack_matrix``, then
+    """Decode a batch of segments, each on its own: ``pack_segments``, then
     ``parse_segments_scan`` on ``device`` (the parse kernel on the card,
     the plain scan on the CPU), then each segment's records walked on the
     host.  Returns one bytes object per segment, out_lens[b] long.  The
     name is the JAX package's reference decoder's."""
     dev = resolve_device(device)
-    mat, lens = pack_matrix(seg_bytes_list)
+    mat, lens = pack_segments(seg_bytes_list)
     emits = parse_segments_scan(torch.from_numpy(mat).to(dev),
                                 torch.from_numpy(lens).to(dev))
-    return _execute_rows(*(x.cpu().numpy() for x in emits[:6]), mat,
-                         out_lens)
+    return execute_ops_host(*emits[:6], mat, out_lens)

@@ -101,7 +101,8 @@ def _run_doubling(ext, cap: int):
     return runs
 
 
-def find_matches_dyn(data, n, seg: int = SEG, rng: int = 0, level: int = 2):
+def find_matches_dyn(data, n, seg: int = SEG, rng: int = 0, level: int = 2,
+                     exact: bool = False):
     """data: [B, N] bytes of B blocks (any integer dtype, values 0..255,
     zero padded); n: [B] valid lengths (tensor or sequence).
 
@@ -109,7 +110,11 @@ def find_matches_dyn(data, n, seg: int = SEG, rng: int = 0, level: int = 2):
     range of their destination.  ``level`` picks the tiers and candidate
     depth as in ``minlz_tpu.ops.encode_kernel.find_matches_dyn``: -1 one
     aligned short pass; 1 both short passes + the stride-8 tier; 2 adds the
-    stride-64 tier; 3 deepens every candidate set.
+    stride-64 tier; 3 deepens every candidate set.  ``exact`` co-sorts each
+    position's 4-byte value with its hash in the short tier's passes, so a
+    short candidate needs equal bytes and not only an equal 16-bit hash;
+    off (the default, and what every encode path runs), the host serializer
+    verifies the proposals instead.
 
     Returns (dist, length) as [B, N] int64.
     """
@@ -131,11 +136,14 @@ def find_matches_dyn(data, n, seg: int = SEG, rng: int = 0, level: int = 2):
     valid = pos <= n - 4
     sentinel0 = (1 << 31) - (1 << pos_bits0)
     keyflat = torch.where(valid, h << pos_bits0, sentinel0)
-    cands = _window_pass(keyflat, [], N, W, 0,
+    # The payload is only compared for equality, so its unsigned 32-bit
+    # values serve as well as the wrapped int32 that lax.sort carries.
+    v0s = [v0] if exact else []
+    cands = _window_pass(keyflat, v0s, N, W, 0,
                          nback=(1 if level < 1 else 2 + deep),
                          pos_bits=pos_bits0)
     if N > W and level >= 1:
-        cands += _window_pass(keyflat, [], N, W, W // 2, nback=1 + deep,
+        cands += _window_pass(keyflat, v0s, N, W, W // 2, nback=1 + deep,
                               pos_bits=pos_bits0)
 
     for cand in cands:

@@ -68,7 +68,7 @@ def init_state(lanes: int, device) -> dict:
     return st
 
 
-def parse_step(st, byte, active, row, flush):
+def parse_step(st, byte, active, row, flush=None):
     """One transducer step.
 
     st:     dict of [lanes] int32 tensors.
@@ -76,10 +76,13 @@ def parse_step(st, byte, active, row, flush):
             inactive).
     active: [lanes] bool, row < segment compressed length.
     row:    [lanes] int32 (or an int), the row index of each lane.
-    flush:  [lanes] bool, row == segment compressed length.
+    flush:  [lanes] bool, row == segment compressed length (None: no lane
+            is at its flush row).
 
     Returns (new_state, (kind, dst, clen, csrc, lsrc, llen, lacc)).
     """
+    if flush is None:
+        flush = torch.zeros_like(active)
     w = torch.where
     c = _consts(byte.device)
     zero = c[0]

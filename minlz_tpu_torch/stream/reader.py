@@ -6,10 +6,13 @@ skippable/user chunk dispatch, Skip without decode, and a ReadSeeker using the
 0x40 index.
 
 ``device`` is a torch device or a string such as "cuda" or "cpu"; ``None``
-decodes every block on the host.  A device decode that fails raises: it is
+decodes every block on the host.  The JAX package's bools also hold: True
+is "cuda", False the host.  A device decode that fails raises: it is
 not replaced by a host decode.  Only a block whose parse hints are corrupt
 (CorruptError) is decoded on the host, since hints are advisory; the
-codec's ``blocks_decoded`` count shows which blocks the device took.
+reader's ``hint_fallbacks`` counts those blocks, and the codec's
+``blocks_decoded`` count shows which blocks the device took.  A device
+output that fails the CRC its chunk carries raises, as a host output does.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from ..minlz import (
     crc,
     read_uvarint,
 )
+from .._device import stream_device
 from ..oracle.decode import parse_header
 from .index import Index
 
@@ -53,7 +57,8 @@ class Reader:
                                   EOF chunk as truncated (tail -f use).
       device                    — torch device of the block codec ("cuda" by
                                   default; "cpu" runs the same path in plain
-                                  torch); None decodes on the host.
+                                  torch); None (or False) decodes on the
+                                  host, True is "cuda".
     """
 
     def __init__(
@@ -76,6 +81,7 @@ class Reader:
         self._user_cb = dict(user_chunk_cb or {})
         self._fallback = fallback
         self._backend = decoder_backend
+        device = stream_device(device)
         self._device = device
         if device is not None:
             from ..ops.device_codec import get_device_codec
@@ -84,6 +90,8 @@ class Reader:
         else:
             self._device_codec = None
         self._pending_hints = None
+        # Blocks whose hints were set aside for the host decoder.
+        self.hint_fallbacks = 0
         self._decoded = b""
         self._decoded_pos = 0
         self._block_start = 0  # uncompressed offset of current window start
@@ -160,6 +168,8 @@ class Reader:
                     self._decode_data_chunk(ctype, payload)
                     self._decoded_pos = n
                     return
+                # The skipped block's hints must not reach the next one.
+                self._pending_hints = None
                 n -= dlen
                 self._uncompressed_seen += dlen
             elif ctype == CHUNK_TYPE_UNCOMPRESSED_DATA:
@@ -217,14 +227,7 @@ class Reader:
             while True:
                 hdr = self._read_exact(4, allow_eof=True)
                 if hdr is None:
-                    if (
-                        self._seen_data
-                        and not self._seen_eof_chunk
-                        and not self._ignore_missing_eof
-                    ):
-                        raise CorruptError(
-                            "stream truncated: missing EOF chunk"
-                        )
+                    self._check_eof()
                     break
                 ctype = hdr[0]
                 clen = int.from_bytes(hdr[1:4], "little")
@@ -286,6 +289,7 @@ class Reader:
                 outs = self._device_codec.decode_batch(items)
             except CorruptError:
                 # Hints are advisory: the block itself may still be sound.
+                self.hint_fallbacks += len(batch)
                 outs = [
                     blockapi.decode(b"\x00" + b[2]) for b in batch
                 ]
@@ -297,12 +301,7 @@ class Reader:
             hdr = self._read_exact(4, allow_eof=True)
             if hdr is None:
                 flush()
-                if (
-                    self._seen_data
-                    and not self._seen_eof_chunk
-                    and not self._ignore_missing_eof
-                ):
-                    raise CorruptError("stream truncated: missing EOF chunk")
+                self._check_eof()
                 break
             ctype = hdr[0]
             clen = int.from_bytes(hdr[1:4], "little")
@@ -416,16 +415,7 @@ class Reader:
         while True:
             hdr = self._read_exact(4, allow_eof=True)
             if hdr is None:
-                # Truncation detection: every stream must end with an EOF
-                # chunk (SPEC.md §4.6; reference wantEOF, reader.go).
-                # Snappy-framed streams have no EOF chunk in their framing.
-                if (
-                    self._seen_data
-                    and not self._seen_eof_chunk
-                    and not self._ignore_missing_eof
-                    and not getattr(self, "_snappy_frame", False)
-                ):
-                    raise CorruptError("stream truncated: missing EOF chunk")
+                self._check_eof()
                 self._eof = True
                 return False
             ctype = hdr[0]
@@ -444,6 +434,20 @@ class Reader:
                     return True
                 continue
             self._handle_control_chunk(ctype, clen)
+
+    def _check_eof(self) -> None:
+        """At the end of the source: truncation detection.  Every stream
+        must end with an EOF chunk (SPEC.md §4.6; reference wantEOF,
+        reader.go); Snappy-framed streams have none in their framing.  The
+        same check on every route: read, decode_concurrent and the device
+        drain."""
+        if (
+            self._seen_data
+            and not self._seen_eof_chunk
+            and not self._ignore_missing_eof
+            and not getattr(self, "_snappy_frame", False)
+        ):
+            raise CorruptError("stream truncated: missing EOF chunk")
 
     def _handle_control_chunk(self, ctype: int, clen: int) -> None:
         if ctype == CHUNK_TYPE_STREAM_ID:
@@ -582,7 +586,7 @@ class Reader:
                 except CorruptError:
                     # Hints are advisory: corrupt hints leave the block to
                     # the host decoder.  Any other device failure raises.
-                    pass
+                    self.hint_fallbacks += 1
         if self._backend is not None:
             return self._backend(b"\x00" + body)
         return blockapi.decode(b"\x00" + body)
@@ -655,6 +659,7 @@ class ReadSeeker(Reader):
             raise ValueError("negative seek")
         coff, uoff = self._index.find(offset)
         self._src.seek(coff)
+        self._pending_hints = None
         self._decoded = b""
         self._decoded_pos = 0
         self._read_header = coff != 0 or self._ignore_stream_id

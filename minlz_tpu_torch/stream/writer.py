@@ -7,7 +7,8 @@ dispatch (``minlz_tpu_torch.ops``) or fan out across host threads (native codec
 releases the GIL), and results are written in submission order.
 
 ``device`` is a torch device or a string such as "cuda" or "cpu"; ``None``
-keeps every block on the host.  Asking for "cuda" without a GPU raises.
+keeps every block on the host.  Asking for "cuda" without a GPU raises.  The
+JAX package's bools also hold: True is "cuda", False the host.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from ..minlz import (
     crc,
     put_uvarint,
 )
+from .._device import stream_device
 from .index import Index
 
 def _block_size_log(block_size: int) -> int:
@@ -57,8 +59,9 @@ class Writer:
       index_returned_on_close — if CloseIndex-style retrieval is wanted, use
                        close(return_index=True).
       device         — torch device of the block codec ("cuda" by default;
-                       "cpu" runs the same path in plain torch); None
-                       encodes on the host without parse hints.
+                       "cpu" runs the same path in plain torch); None (or
+                       False) encodes on the host without parse hints, True
+                       is "cuda".
       device_emit    — serialize the tokens on the device too
                        (DeviceCodec.encode_batch_emit): no host serializer.
       mesh           — a ``parallel.Mesh``: every rank runs the same Writer
@@ -98,6 +101,7 @@ class Writer:
             raise ValueError(f"block_size {block_size} out of range 4KiB..8MiB")
         if search_table is not None:
             search_table.validate()
+        device = stream_device(device)
         if device is not None and block_size == DEFAULT_BLOCK_SIZE:
             # Device-friendly geometry: 1MiB blocks decode whole in one
             # dispatch; explicit block_size choices are honored as-is.

@@ -79,7 +79,7 @@ def _assert_fields(got, want):
 
 def test_pack_matrix_is_the_jax_packing(scan_case):
     _, segs, mat, lens, _ = scan_case
-    got_mat, got_lens = tdk.pack_matrix(segs)
+    got_mat, got_lens = tdk.pack_segments(segs)
     np.testing.assert_array_equal(got_mat, mat)
     np.testing.assert_array_equal(got_lens, lens)
 

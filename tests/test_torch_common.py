@@ -163,6 +163,31 @@ def dense_ops_to_records(ops, counts, pc: int, guard: int, lane_start):
     return np.stack([a & 0x3FFF, (a >> 14) & 0x3FFF, b, lit]).astype(np.int32)
 
 
+def chunks(raw: bytes):
+    """(offset, type, payload length) of every chunk of a stream."""
+    out, pos = [], 0
+    while pos + 4 <= len(raw):
+        clen = int.from_bytes(raw[pos + 1:pos + 4], "little")
+        out.append((pos, raw[pos], clen))
+        pos += 4 + clen
+    assert pos == len(raw)
+    return out
+
+
+class Decoded:
+    """Blocks the codec decoded on the device inside a ``with``."""
+
+    def __init__(self, codec):
+        self.codec = codec
+
+    def __enter__(self):
+        self.before = self.codec.blocks_decoded
+        return self
+
+    def __exit__(self, *exc):
+        self.n = self.codec.blocks_decoded - self.before
+
+
 def test_dense_ops_to_records_undoes_the_arena_offset():
     ops = np.zeros((2, 4, 3), np.int32)
     ops[0, 0] = (5 | (9 << 14), 3, 512 + 0 * 1024 + 7)

@@ -974,6 +974,7 @@ def test_mesh_writer_on_card(twain):
     r = Reader(io.BytesIO(stream), device="cuda")
     before = r.codec.blocks_decoded
     assert r.readall() == payload and r.codec.blocks_decoded - before == 4
+    assert r.hint_fallbacks == 0
 
 
 def test_cli_device_round_trip_on_card(tmp_path, monkeypatch):
@@ -1054,7 +1055,7 @@ def test_parse_segments_scan_on_card_matches_plain(stages):
     from minlz_tpu_torch import _build
     from minlz_tpu_torch.ops import decode_kernel as tdk
 
-    mat, lens = tdk.pack_matrix(_scan_segments(stages[1]))
+    mat, lens = tdk.pack_segments(_scan_segments(stages[1]))
     before = _build.launch_counts()["parse"]
     got = tdk.parse_segments_scan(torch.from_numpy(mat).cuda(),
                                   torch.from_numpy(lens).cuda())

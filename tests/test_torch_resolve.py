@@ -3,7 +3,7 @@ model (minlz_tpu_torch.ops.resolve_model): sub-tiles in output order for the
 range road; tiles, residuals and the fix-up for the whole-block road, at tile
 sizes small enough that short inputs cross many tiles.  Held equal to the
 plain versions (execute_ranges_plain, execute_blocks_plain), to a byte-serial
-walk, to the host referee (ops/decode_kernel.execute_ops_host) where the
+walk, to the host referee (ops/decode_kernel.execute_records_host) where the
 records are valid, and on real blocks to the JAX package's decoded bytes.
 Tolerance: exact (bytes)."""
 
@@ -86,7 +86,7 @@ def referee(rows, span):
     recs = np.zeros((7, len(rows)), np.int32)
     for k, (pos, llen, clen, csrc, lit) in enumerate(rows):
         recs[:, k] = (0, pos, clen, csrc, lit, llen, 0)
-    return tdk.execute_ops_host(recs, [len(rows)], COMP, [0], span)
+    return tdk.execute_records_host(recs, [len(rows)], COMP, [0], span)
 
 
 # name: records (llen, clen, csrc, lsrc), back to back, all valid for the

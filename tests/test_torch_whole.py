@@ -310,7 +310,7 @@ def test_decode_kernel_matches_jax_on_independent_segments(twain):
     want = jdk.decode_segments_jnp(segs, [SEG] * len(segs))
     got = tdk.decode_segments(segs, SEG * len(segs), SEG)
     assert got == b"".join(want) == b"".join(chunks)
-    comp, start, lens = tdk.pack_segments(segs)
+    comp, start, lens = tdk.pack_lanes(segs)
     mat, jlens = jdk.pack_segments(segs)
     assert lens.tolist() == jlens.tolist()
     for i, s in enumerate(segs):
@@ -322,7 +322,8 @@ def test_host_walk_rejects_a_copy_before_the_block():
     recs = np.zeros((7, 3), np.int32)
     recs[:, 0] = (2, 0, 4, 9, 0, 2, 0)  # copy offset 9 at position 2
     with pytest.raises(ValueError, match="copy offset"):
-        tdk.execute_ops_host(recs, [1], np.zeros(8, np.uint8), [0], SEG)
+        tdk.execute_records_host(recs, [1], np.zeros(8, np.uint8), [0],
+                                 SEG)
 
 
 # ---- streams without the range clamp ---------------------------------------
