@@ -148,8 +148,8 @@ def device_share(prof, top: int | None = 5) -> dict:
     from torch.autograd import DeviceType
 
     return _share([(e.name, e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA],
-                  top)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)], top)
 
 
 # The Chrome trace's categories of device activity: what

@@ -23,7 +23,8 @@ threads, which the card route refuses.  ``stats``, ``s``, ``sidecar`` and
 ``vis`` read chunks and search tables on the host, as in the JAX CLI (the
 round-trip of ``c -bench -verify`` too, as an independent check).
 ``--traceprof DIR`` records the run with ``torch.profiler`` (CUDA activity
-too on a CUDA device) and writes a Chrome trace into ``DIR``.
+too on a CUDA device) and writes a Chrome trace into ``DIR``, and beside it
+``spans.json``: the run's spans and counters (``trace.snapshot()``).
 
 Usage:
   python -m minlz_tpu_torch.cli c  [-1|-2|-3|-xfast] [-block] [-bs N] [-index]
@@ -748,7 +749,8 @@ def main(argv=None, device="cuda") -> int:
     p.add_argument("--memprof", metavar="FILE",
                    help="write a tracemalloc top-stats dump to FILE")
     p.add_argument("--traceprof", metavar="DIR",
-                   help="capture a torch.profiler Chrome trace into DIR")
+                   help="capture a torch.profiler Chrome trace and the "
+                   "spans (spans.json) into DIR")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     pc = sub.add_parser("c", help="compress")
@@ -875,10 +877,14 @@ def main(argv=None, device="cuda") -> int:
 
         tracemalloc.start()
     if args.traceprof:
+        from . import trace
         from .bench import profiled
 
+        trace.reset()
         with profiled(args.traceprof, "mz", args.device or "cpu"):
             rc = _run_cpuprof(run, args.cpuprof)
+        with open(os.path.join(args.traceprof, "spans.json"), "w") as f:
+            json.dump(trace.snapshot(), f, indent=1)
     else:
         rc = _run_cpuprof(run, args.cpuprof)
     if args.memprof:

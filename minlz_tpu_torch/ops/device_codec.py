@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import threading
 
+from .. import trace
 from .._device import resolve_device
 from ..minlz import CorruptError, put_uvarint, read_uvarint
 
@@ -131,8 +132,9 @@ class DeviceCodec:
         from . import encode_kernel
 
         seg = self._seg_for(max(len(b) for b in blocks))
-        results = encode_kernel.encode_blocks_device(
-            [bytes(b) for b in blocks], seg, RANGE, level, self.device)
+        with trace.span("codec.encode_batch"):
+            results = encode_kernel.encode_blocks_device(
+                [bytes(b) for b in blocks], seg, RANGE, level, self.device)
         self.blocks_encoded += len(blocks)
         return [None if block is None
                 else (block, marshal_hints(seg, hints, RANGE))
@@ -156,9 +158,11 @@ class DeviceCodec:
 
         from . import emit
 
-        seg, arr, ns = self._emit_batch(blocks)
-        out, lens = emit.encode_block_emit(
-            torch.from_numpy(arr).to(self.device), ns, seg, RANGE, level)
+        with trace.span("codec.pack_batch"):
+            seg, arr, ns = self._emit_batch(blocks)
+        with trace.span("codec.copy_in", self.device):
+            data = torch.from_numpy(arr).to(self.device)
+        out, lens = emit.encode_block_emit(data, ns, seg, RANGE, level)
         self.blocks_encoded += len(blocks)
         return self._emit_results(blocks, seg, out, lens)
 
@@ -212,21 +216,28 @@ class DeviceCodec:
         None when the block is empty or does not compress."""
         import numpy as np
 
-        out = out.cpu().numpy()
-        lens = lens.cpu().numpy()
-        results = []
-        for i, b in enumerate(blocks):
-            n = len(b)
-            nseg = -(-n // seg)
-            body = b"".join(
-                out[i, s, : lens[i, s]].tobytes() for s in range(nseg))
-            if n == 0 or len(body) >= n:
-                results.append(None)
-                continue
-            offs = np.concatenate([[0], np.cumsum(lens[i, :nseg])[:-1]])
-            hints = [(int(o), s * seg) for s, o in enumerate(offs)]
-            block = b"\x00" + put_uvarint(n) + body
-            results.append((block, marshal_hints(seg, hints, RANGE)))
+        trace.count("codec.copy_back_bytes",
+                    out.numel() * out.element_size()
+                    + lens.numel() * lens.element_size())
+        with trace.span("codec.copy_back", out.device):
+            out = out.cpu().numpy()
+            lens = lens.cpu().numpy()
+        with trace.span("codec.frame_segments"):
+            results, kept = [], 0
+            for i, b in enumerate(blocks):
+                n = len(b)
+                nseg = -(-n // seg)
+                body = b"".join(
+                    out[i, s, : lens[i, s]].tobytes() for s in range(nseg))
+                if n == 0 or len(body) >= n:
+                    results.append(None)
+                    continue
+                kept += len(body)
+                offs = np.concatenate([[0], np.cumsum(lens[i, :nseg])[:-1]])
+                hints = [(int(o), s * seg) for s, o in enumerate(offs)]
+                block = b"\x00" + put_uvarint(n) + body
+                results.append((block, marshal_hints(seg, hints, RANGE)))
+        trace.count("codec.kept_bytes", kept)
         return results
 
     @staticmethod
@@ -272,7 +283,8 @@ class DeviceCodec:
 
         groups = {}
         for i, (body, hints, dlen) in enumerate(items):
-            seg, rng, segs = self._prepare(body, hints, dlen)
+            with trace.span("codec.prepare"):
+                seg, rng, segs = self._prepare(body, hints, dlen)
             groups.setdefault((seg, rng), []).append((i, segs, dlen))
         out = [None] * len(items)
         for (seg, rng), entries in groups.items():

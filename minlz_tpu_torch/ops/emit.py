@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from . import encode_kernel as ek
 from .greedy import greedy_parse
 
@@ -385,16 +386,21 @@ def encode_block_emit(data, n, seg: int, rng: int = 0, level: int = 2,
     back into them), but serialization covers only the remaining
     ``nseg - ctx`` block segments."""
     B, N = data.shape
-    n = _lengths(n, B, data.device)
-    dist, length = ek.find_matches_dyn(data, n, seg, rng, level)
+    dev = data.device
+    with trace.span("emit.match", dev):
+        n = _lengths(n, B, dev)
+        dist, length = ek.find_matches_dyn(data, n, seg, rng, level)
     nseg = N // seg
-    take, tok_off, _, _ = greedy_parse(
-        dist.to(_I32).reshape(B * nseg, seg),
-        length.to(_I32).reshape(B * nseg, seg), seg)
-    del dist, length
-    take = take.reshape(B, N)
-    tok_off = tok_off.reshape(B, N)
-    surv, vlen = verify_extend(data, take, tok_off, n, seg)
+    with trace.span("emit.greedy", dev):
+        take, tok_off, _, _ = greedy_parse(
+            dist.to(_I32).reshape(B * nseg, seg),
+            length.to(_I32).reshape(B * nseg, seg), seg)
+        del dist, length
+        take = take.reshape(B, N)
+        tok_off = tok_off.reshape(B, N)
+    with trace.span("emit.verify", dev):
+        surv, vlen = verify_extend(data, take, tok_off, n, seg)
     C = ctx * seg
-    return emit_segments(data[:, C:], surv[:, C:], tok_off[:, C:],
-                         vlen[:, C:], n - C, seg)
+    with trace.span("emit.segments", dev):
+        return emit_segments(data[:, C:], surv[:, C:], tok_off[:, C:],
+                             vlen[:, C:], n - C, seg)

@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from .._device import resolve_device
 from ..minlz import put_uvarint
 from ..native.build import build_error
@@ -417,16 +418,18 @@ def encode_blocks_device(blocks, seg: int = SEG, rng: int = 0,
         return []
     dev = resolve_device(device)
     codec = _native_codec()
-    N = _size_class(max(len(b) for b in blocks))
-    arr = np.zeros((len(blocks), N), np.uint8)
-    for i, b in enumerate(blocks):
-        arr[i, : len(b)] = np.frombuffer(b, np.uint8)
-    ns = [len(b) for b in blocks]
-    dists = _find_matches_batch(
-        torch.from_numpy(arr).to(dev), ns, seg, rng, level
-    ).cpu().numpy()
-    return [_serialize(codec, b, dists[i, : len(b)], seg, rng, level)
-            for i, b in enumerate(blocks)]
+    with trace.span("encode.match"):
+        N = _size_class(max(len(b) for b in blocks))
+        arr = np.zeros((len(blocks), N), np.uint8)
+        for i, b in enumerate(blocks):
+            arr[i, : len(b)] = np.frombuffer(b, np.uint8)
+        ns = [len(b) for b in blocks]
+        dists = _find_matches_batch(
+            torch.from_numpy(arr).to(dev), ns, seg, rng, level
+        ).cpu().numpy()
+    with trace.span("encode.serialize"):
+        return [_serialize(codec, b, dists[i, : len(b)], seg, rng, level)
+                for i, b in enumerate(blocks)]
 
 
 def encode_block_device(data: bytes, seg: int = SEG, rng: int = 0,

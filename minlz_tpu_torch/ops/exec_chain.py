@@ -51,7 +51,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, trace
 from .._device import resolve_device
 from .device_codec import RANGE
 from .parse import parse_planned
@@ -642,20 +642,27 @@ def decode_planned(plan: BatchPlan, device="cuda", executor: str = "fast",
     if not 0 < plan.rng <= RANGE:
         raise ValueError(f"the range executors stage at most {RANGE} bytes "
                          f"and no whole block")
-    t = plan.tensors(device) if tensors is None else tensors
-    recs, counts = parse_planned(t["comp"], t["lane_start"], t["lane_len"])
-    if executor == "fast":
-        crec, lane_out, total = compact_records(
-            recs, counts, t["lane_start"], t["lane_len"], t["lane_lo"],
-            t["lane_hi"])
-        execute = execute_ranges
-    else:
-        crec, lane_out, total = compact_records_dense(
-            recs, counts, t["lane_start"], t["lane_len"])
-        execute = execute_scheduled
-    first = range_firsts(lane_out, total, t["range_lane"])
-    return execute(crec, first, t["range_out"], t["range_span"], t["comp"],
-                   plan.total_out, plan.max_span, spans_checked=True)
+    with trace.span("decode.planned"):
+        t = plan.tensors(device) if tensors is None else tensors
+        with trace.span("decode.parse"):
+            recs, counts = parse_planned(t["comp"], t["lane_start"],
+                                         t["lane_len"])
+        with trace.span("decode.compact"):
+            if executor == "fast":
+                crec, lane_out, total = compact_records(
+                    recs, counts, t["lane_start"], t["lane_len"],
+                    t["lane_lo"], t["lane_hi"])
+                execute = execute_ranges
+            else:
+                crec, lane_out, total = compact_records_dense(
+                    recs, counts, t["lane_start"], t["lane_len"])
+                execute = execute_scheduled
+        with trace.span("decode.range_firsts"):
+            first = range_firsts(lane_out, total, t["range_lane"])
+        with trace.span("decode.execute"):
+            return execute(crec, first, t["range_out"], t["range_span"],
+                           t["comp"], plan.total_out, plan.max_span,
+                           spans_checked=True)
 
 
 def trim_blocks(plan: BatchPlan, out, out_totals):
@@ -678,9 +685,11 @@ def decode_blocks_chained(blocks_segs, out_totals, seg: int,
     entry."""
     if not blocks_segs:
         return []
-    plan = plan_batch(blocks_segs, seg, rng)
-    return trim_blocks(plan, decode_planned(plan, device, executor),
-                       out_totals)
+    with trace.span("decode.plan"):
+        plan = plan_batch(blocks_segs, seg, rng)
+    out = decode_planned(plan, device, executor)
+    with trace.span("decode.trim"):
+        return trim_blocks(plan, out, out_totals)
 
 
 def decode_block_chained(seg_bytes_list, out_total: int, seg: int,

@@ -20,6 +20,7 @@ from __future__ import annotations
 import io
 
 from .. import block as blockapi
+from .. import trace
 from ..minlz import (
     CHUNK_TYPE_EOF,
     CHUNK_TYPE_INDEX,
@@ -284,17 +285,20 @@ class Reader:
         def flush():
             if not batch:
                 return
-            items = [(b[2][b[3] - 1 :], b[5], b[4]) for b in batch]
-            try:
-                outs = self._device_codec.decode_batch(items)
-            except CorruptError:
-                # Hints are advisory: the block itself may still be sound.
-                self.hint_fallbacks += len(batch)
-                outs = [
-                    blockapi.decode(b"\x00" + b[2]) for b in batch
-                ]
-            for (ctype, payload, _, _, _, _), data in zip(batch, outs):
-                write_block(data, ctype, payload)
+            with trace.span("reader.batch"):
+                items = [(b[2][b[3] - 1 :], b[5], b[4]) for b in batch]
+                try:
+                    outs = self._device_codec.decode_batch(items)
+                except CorruptError:
+                    # Hints are advisory: the block itself may still be
+                    # sound.
+                    self.hint_fallbacks += len(batch)
+                    outs = [
+                        blockapi.decode(b"\x00" + b[2]) for b in batch
+                    ]
+                with trace.span("reader.check"):
+                    for b, data in zip(batch, outs):
+                        write_block(data, b[0], b[1])
             batch.clear()
 
         while True:

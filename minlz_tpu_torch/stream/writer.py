@@ -18,6 +18,7 @@ import os
 from concurrent.futures import ThreadPoolExecutor
 
 from .. import block as blockapi
+from .. import trace
 from ..minlz import (
     CHUNK_TYPE_EOF,
     CHUNK_TYPE_MINLZ_COMPRESSED,
@@ -214,12 +215,13 @@ class Writer:
             # Mixed use: fall back to the buffering path.
             self.write(data)
             return
-        pos = 0
-        n = len(data)
-        while n - pos >= self._block_size:
-            self._submit_block(bytes(data[pos : pos + self._block_size]))
-            pos += self._block_size
-        self._buf += data[pos:]
+        with trace.span("writer.encode_buffer"):
+            pos = 0
+            n = len(data)
+            while n - pos >= self._block_size:
+                self._submit_block(bytes(data[pos : pos + self._block_size]))
+                pos += self._block_size
+            self._buf += data[pos:]
 
     def write_preencoded(self, block: bytes, data_len: int) -> None:
         """Emit an already-encoded MinLZ block (leading 0x00 marker) as one
@@ -543,25 +545,32 @@ class Writer:
             return
         batch = self._dev_batch
         self._dev_batch = []
+        with trace.span("writer.flush_batch", batch=True):
+            results = self._encode_dev_batch([d for d, _ in batch])
+            with trace.span("writer.frame"):
+                self._frame_dev_batch(batch, results)
+
+    def _encode_dev_batch(self, blocks):
         try:
             if self._mesh is not None:
-                results = self._device_codec.encode_batch_mesh(
-                    self._mesh, [d for d, _ in batch], self._level
+                return self._device_codec.encode_batch_mesh(
+                    self._mesh, blocks, self._level
                 )
-            elif self._device_emit:
+            if self._device_emit:
                 # One dispatch for the whole batch (the r4 writer paid a
                 # kernel launch per block here).
-                results = self._device_codec.encode_batch_emit(
-                    [d for d, _ in batch], self._level
+                return self._device_codec.encode_batch_emit(
+                    blocks, self._level
                 )
-            else:
-                results = self._device_codec.encode_batch(
-                    [d for d, _ in batch], self._level
-                )
+            return self._device_codec.encode_batch(blocks, self._level)
         except Exception as exc:  # device failure → sticky error
             self._latch(exc)
+
+    def _frame_dev_batch(self, batch, results):
+        """CRC and frame each block of a device batch, in order."""
         from ..minlz import CHUNK_TYPE_PARSE_HINT
 
+        raw = 0
         for (data, uoff), res in zip(batch, results):
             c = crc(data)
             if res is None:
@@ -585,6 +594,7 @@ class Writer:
                             + len(hint_payload).to_bytes(3, "little")
                             + hint_payload
                         )
+            raw += ctype == CHUNK_TYPE_UNCOMPRESSED_DATA
             if self._index is not None:
                 self._index.add(self._written_out, uoff)
             self._last_data_off = self._written_out + len(hint_chunk)
@@ -594,6 +604,7 @@ class Writer:
                 + len(payload).to_bytes(3, "little")
                 + payload
             )
+        trace.count("writer.blocks_stored_raw", raw)
 
     def _drain(self):
         self._flush_dev_batch()

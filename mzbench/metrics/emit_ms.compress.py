@@ -1,0 +1,10 @@
+"""emit_ms.compress: the card's time in token emission
+(``emit_segments``) a batch, in ms: the span ``minlz.emit.segments``'s
+two CUDA events, at its entry and exit on the stream, summed over the
+traced window (``minlz_tpu_torch.trace.snapshot``), over its count."""
+
+from mzbench import spans
+
+
+def read(rec, trace):
+    return spans.device_ms(rec, trace, "emit.segments")

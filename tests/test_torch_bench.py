@@ -114,6 +114,25 @@ def test_profiled_writes_a_trace_and_finds_no_device_on_the_cpu(tmp_path):
         assert prof is None
 
 
+def test_device_share_leaves_out_user_annotations():
+    """A span's mirror on the device's timeline (a user annotation, such as
+    ``minlz.decode.parse``) is no device time."""
+    from types import SimpleNamespace as NS
+
+    from torch.autograd import DeviceType
+
+    def event(name, start, end, annotation=False):
+        return NS(name=name, device_type=DeviceType.CUDA,
+                  time_range=NS(start=start, end=end),
+                  is_user_annotation=annotation)
+
+    prof = NS(events=lambda: [event("k1", 0, 10), event("k2", 30, 40),
+                              event("minlz.decode.parse", 0, 40, True)])
+    share = tbench.device_share(prof, top=None)
+    assert share["busy_us"] == 20 and share["window_us"] == 40
+    assert [k for k, _, _ in share["kernels"]] == ["k1", "k2"]
+
+
 def test_trace_share_reads_a_chrome_trace(tmp_path):
     """trace_share: the device's window, busy time and idle share from the
     kernel and copy events of a Chrome trace; host events are not device

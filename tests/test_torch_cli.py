@@ -345,11 +345,36 @@ def test_traceprof_writes_a_trace(tmp_path, twain):
     src.write_bytes(twain)
     assert main(["--traceprof", str(prof), "c", "-device", str(src)],
                 device="cpu") == 0
-    (name,) = os.listdir(prof)
-    with open(prof / name) as f:
+    assert sorted(os.listdir(prof)) == ["mz_trace.json", "spans.json"]
+    with open(prof / "mz_trace.json") as f:
         trace = json.load(f)
-    assert name.endswith("_trace.json")
     assert any(e.get("ph") == "X" for e in trace["traceEvents"])
+
+
+def test_traceprof_writes_the_spans(tmp_path, twain):
+    """`--traceprof DIR` writes the run's spans and counters beside the
+    trace: here the serializer Writer's stages, each batch's stages under
+    it, and the spans' names in the trace under ``minlz.``."""
+    src, prof = tmp_path / "in.txt", tmp_path / "prof"
+    src.write_bytes(twain)
+    assert main(["--traceprof", str(prof), "c", "-device", str(src)],
+                device="cpu") == 0
+    with open(prof / "spans.json") as f:
+        snap = json.load(f)
+    spans = snap["spans"]
+    batches = spans["writer.flush_batch"]["count"]
+    assert batches >= 1
+    for name, parent in (("codec.encode_batch", "writer.flush_batch"),
+                         ("encode.match", "codec.encode_batch"),
+                         ("encode.serialize", "codec.encode_batch"),
+                         ("writer.frame", "writer.flush_batch")):
+        assert spans[name]["parent"] == parent
+        assert spans[name]["count"] == batches
+        assert 0 <= spans[name]["self_s"] <= spans[name]["host_s"]
+    assert snap["counters"]["writer.blocks_stored_raw"] == 0
+    with open(prof / "mz_trace.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"minlz." + n for n in spans} <= names
 
 
 def test_seek_routes_run_on_the_card(tmp_path, twain, monkeypatch,

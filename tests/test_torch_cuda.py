@@ -1103,3 +1103,42 @@ def test_greedy_parse_jax_name_on_card():
                                  torch.from_numpy(length), 4096)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+def test_spans_time_the_emit_stages_on_the_card(twain):
+    """Under torch.profiler the device_emit Writer's six card-side stages
+    (copy in, match, greedy, verify, emit, copy back) carry CUDA event
+    times, one batch each, inside the batch's host time; the spans' mirrors
+    on the device's timeline are user annotations, no device operation."""
+    import io
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from minlz_tpu_torch import trace
+    from minlz_tpu_torch.stream import Reader, Writer
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    data = (twain * 48)[: 16 << 20]
+    buf = io.BytesIO()
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        w = Writer(buf, device="cuda", level=2, device_emit=True)
+        w.encode_buffer(data)
+        w.close()
+    snap = trace.snapshot()
+    trace.reset()
+    stages = ["codec.copy_in", "emit.match", "emit.greedy", "emit.verify",
+              "emit.segments", "codec.copy_back"]
+    for name in stages:
+        st = snap["spans"][name]
+        assert st["count"] == 1 and st["device_s"] > 0, name
+    card = sum(snap["spans"][n]["device_s"] for n in stages)
+    assert card <= snap["spans"]["writer.flush_batch"]["host_s"]
+    mirrors = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA
+               and e.name().startswith(trace.PREFIX)]
+    assert all(e.is_user_annotation() for e in mirrors)
+    assert Reader(io.BytesIO(buf.getvalue()), device=None).readall() == data
