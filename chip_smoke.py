@@ -48,7 +48,11 @@ version, through its wrapper and as a bare launch into an output filled
 with 0x7f7f7f7f, and timed ("time greedy" lines: alone and through
 greedy_parse, tokens a lane, registers and shared memory a block) on the
 encode batch's proposals, hostile int32, no candidate, every length 4 and
-one lane-long match.  The compactions (kernels 2, 5 and 6, and the lane
+one lane-long match.  The emit kernel (csrc/emit.cu, token emission, which
+the JAX package wrote in jnp) is held against emit_segments_plain on the
+encode batch's verified parse, through emit_segments and as a bare launch
+into outputs filled with 0x7f, and timed ("time emit" line: alone and
+through emit_segments).  The compactions (kernels 2, 5 and 6, and the lane
 offset scan in front of them) are held against their plain versions (lane
 offsets, record total and the first total columns) on the corpus batch at
 range spans, at whole-block spans and dense, on the three made-up K1 batches
@@ -172,6 +176,10 @@ KERNELS = {
                    "serializer"),
     "greedy": ("minlz_tpu_torch/csrc/greedy.cu",
                "minlz_tpu/ops/pallas_encode.py:29", "greedy", "device_emit"),
+    # Token emission, where the TPU package took jnp ops: no Pallas kernel
+    # of its own.
+    "emit": ("minlz_tpu_torch/csrc/emit.cu", "minlz_tpu/ops/emit.py:196",
+             "emit", "device_emit"),
     "exec_block": ("minlz_tpu_torch/csrc/exec_block.cu",
                    "minlz_tpu/ops/pallas_decode.py:137", "exec_block",
                    "unclamped"),
@@ -962,6 +970,61 @@ def time_greedy(label, off, length, card):
         f"{a['blocks_per_sm']} blocks resident a SM  [{card}]")
     return {"err": err, "tokens": tokens, "wrapper_once": once,
             "plain_ms": p_ms}
+
+
+def time_emit(enc_in, ns, card):
+    """The "time emit" line: the encode batch's verified parse emitted by
+    the kernel alone (the bare launch into outputs filled with 0x7f, which
+    must come out equal to the plain version's, as must emit_segments'),
+    through emit_segments queued and as one call, and what the card made
+    of the kernel."""
+    from minlz_tpu_torch.ops import emit
+    from minlz_tpu_torch.ops import encode_kernel as ek
+    from minlz_tpu_torch.ops import greedy as tg
+    from minlz_tpu_torch.ops.device_codec import RANGE
+
+    nb, N = enc_in.shape
+    d, ln = ek.find_matches_dyn(enc_in, ns, SEG, RANGE, LEVEL)
+    take, tok_off, _, _ = tg.greedy_parse(
+        d.to(torch.int32).reshape(-1, SEG),
+        ln.to(torch.int32).reshape(-1, SEG), SEG)
+    del d, ln
+    take, tok_off = take.reshape(nb, N), tok_off.reshape(nb, N)
+    surv, vlen = emit.verify_extend(enc_in, take, tok_off, ns, SEG)
+    del take
+    n = torch.tensor(ns, dtype=torch.int32, device=enc_in.device)
+    args = (enc_in, surv, tok_off, vlen, n)
+    out = torch.full((nb, N // SEG, SEG + emit.OUT_PAD), 0x7F,
+                     dtype=torch.uint8, device=enc_in.device)
+    lens = torch.full((nb, N // SEG), SENTINEL, dtype=torch.int32,
+                      device=enc_in.device)
+    emit.launch_emit(*args, SEG, out, lens)
+    wrapped = emit.emit_segments(*args, SEG)
+    torch.cuda.synchronize()
+    plain, p_ms = once_ms(lambda: emit.emit_segments_plain(*args, SEG))
+    err = max(require_equal("emit bytes, bare launch", out, plain[0]),
+              require_equal("emit lengths, bare launch", lens, plain[1]),
+              require_equal("emit_segments bytes", wrapped[0], plain[0]),
+              require_equal("emit_segments lengths", wrapped[1], plain[1]))
+    tokens = int(surv.sum())
+    kept = int(plain[1].sum())
+    del plain, wrapped
+    alone = queued_ms(lambda: emit.launch_emit(*args, SEG, out, lens))
+    wrapper = queued_ms(lambda: emit.emit_segments(*args, SEG))
+    once = cuda_ms(lambda: emit.emit_segments(*args, SEG))
+    a = emit.kernel_attrs(SEG)
+    # The block bytes and three int32 arrays in, the padded rows and their
+    # lengths out.
+    moved = 13 * enc_in.numel() + out.numel() + 4 * lens.numel()
+    log(f"time emit: {nb} x {N >> 20} MiB, {lens.numel()} segments, "
+        f"{tokens} tokens, {kept} bytes emitted; alone {alone:.4f} ms, "
+        f"emit_segments {wrapper:.4f} ms queued, {once:.4f} ms as one call, "
+        f"plain version {p_ms:.4f} ms; {moved / 1e6:.1f} MB to move; "
+        f"{a['registers']} registers a thread, {a['shared_bytes']} bytes of "
+        f"shared memory and {a['threads']} threads a block, "
+        f"{a['blocks_per_sm']} blocks resident a SM  [{card}]")
+    return {"err": err, "wrapper_once": once, "plain_ms": p_ms,
+            "bytes": moved, "tokens": tokens}
 
 
 def compare_synthetic(dev, card, err):
@@ -2027,6 +2090,14 @@ def main():
     # and 8 per token (a chain step and its mark).
     bounds["greedy"] = bound(24 * g_off.numel(),
                              8 * g_off.numel() + 8 * n_tokens)
+    e_line = time_emit(enc_in, ns, card)
+    err["emit"] = e_line["err"]
+    k_ms["emit"] = e_line["wrapper_once"]
+    plain_ms["emit"] = e_line["plain_ms"]
+    # About 8 operations a position (scans, cover, byte copy) and 40 a
+    # token (its choice and its bytes).
+    bounds["emit"] = bound(e_line["bytes"], 8 * enc_in.numel()
+                           + 40 * e_line["tokens"])
 
     # ---- 6. main paths: Writer -> Reader on the card ---------------------
     path_launches, streams = {}, {}
@@ -2079,7 +2150,7 @@ def main():
         if path != "probes" and path_launches[path][count] <= 0:
             raise AssertionError(f"kernel {name} never ran on the {path} "
                                  f"path")
-    for path, counts in (("mesh", ("greedy", "parse")),
+    for path, counts in (("mesh", ("greedy", "emit", "parse")),
                          ("search", ("parse", "compact", "exec_range"))):
         for count in counts:
             if path_launches[path][count] <= 0:
@@ -2090,10 +2161,10 @@ def main():
             if path_launches[path][count] <= 0:
                 raise AssertionError(
                     f"kernel {count} never ran on the {path} path")
-    for path, idle in (("serializer", ("greedy", "exec_block", "exec_sched",
-                                       "compact_dense")),
-                       ("unclamped", ("greedy", "exec_range", "exec_sched",
-                                      "compact_dense")),
+    for path, idle in (("serializer", ("greedy", "emit", "exec_block",
+                                       "exec_sched", "compact_dense")),
+                       ("unclamped", ("greedy", "emit", "exec_range",
+                                      "exec_sched", "compact_dense")),
                        ("scheduled", ("greedy", "exec_range", "exec_block",
                                       "compact"))):
         for count in idle:
@@ -2178,7 +2249,8 @@ def main():
         if path == "probes" and path_launches["probes"][count] <= 0:
             raise AssertionError(f"kernel {name} never ran on the probes "
                                  f"path")
-    for count in ("parse", "compact", "exec_range", "exec_block", "greedy"):
+    for count in ("parse", "compact", "exec_range", "exec_block", "greedy",
+                  "emit"):
         if path_launches["probes"][count] != 0:
             raise AssertionError(f"the probes path launched {count}")
     log(f"main path (probes): kernel_probe, exec_probe body and ablate_exec "
@@ -2309,7 +2381,8 @@ def main():
     for count in ("parse", "compact", "exec_range"):
         if path_launches["cli"][count] <= 0:
             raise AssertionError(f"kernel {count} never ran on the cli path")
-    for count in ("greedy", "exec_block", "exec_sched", "compact_dense"):
+    for count in ("greedy", "emit", "exec_block", "exec_sched",
+                  "compact_dense"):
         if path_launches["cli"][count] != 0:
             raise AssertionError(f"the cli path launched {count}")
     for label, fn, reps, before in (
@@ -2332,6 +2405,7 @@ def main():
                               GATHER_TABLES[-1][1] * 1024).grid
     shapes = {"parse": "8 x 1 MiB batch, through parse_planned",
               "greedy": "16 x 1 MiB batch, greedy_parse as one call",
+              "emit": "16 x 1 MiB batch, emit_segments as one call",
               "exec_block": "8 x 1 MiB batch without the clamp",
               "compact_whole": "8 x 1 MiB batch without the clamp",
               "lane_offsets": "8 x 1 MiB batch, the lane counts",

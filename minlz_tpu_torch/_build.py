@@ -34,7 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # compactions.
 KERNELS = ("parse", "lane_offsets", "compact", "exec_range", "greedy",
            "exec_block", "compact_dense", "exec_sched", "probe_scalar",
-           "probe_gather", "probe_taa", "probe_chain_body", "ablate_exec")
+           "probe_gather", "probe_taa", "probe_chain_body", "ablate_exec",
+           "emit")
 _launches = dict.fromkeys(KERNELS, 0)
 _lock = threading.Lock()
 _lib = None
@@ -71,6 +72,11 @@ _SIGNATURES = {
     "minlz_greedy": [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P],
     # out[4]: registers, shared bytes, threads, resident blocks a SM
     "minlz_greedy_attrs": [_P],
+    # data, surv, off, vlen, n, rows, nseg, seg, out, out_lens, stream
+    "minlz_emit": [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, _P, _P, _P],
+    # seg, out[4]: as minlz_greedy_attrs, shared bytes at this seg
+    "minlz_emit_attrs": [ctypes.c_int, _P],
     # rows, n_ops, n_chains, n_rows, buf, shared, grid, cluster, share,
     # smem, stream
     "minlz_probe_scalar": [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,

@@ -15,21 +15,29 @@ correct by construction even for hash-only match proposals.
 
 The JAX package writes these functions for one block and ``vmap``s them;
 here the batch is written out: every array is ``[B, N]`` (B blocks of N
-padded bytes) with a per-block valid length ``n``.  Everything is plain
-torch ops on the arrays' device; the only kernel on the path is the greedy
-parse (``greedy.greedy_parse``).  All arithmetic is integer and matches the
-JAX package bit for bit.
+padded bytes) with a per-block valid length ``n``.  Two kernels are on the
+path: the greedy parse (``greedy.greedy_parse``) and, for CUDA tensors,
+``emit_segments`` (``csrc/emit.cu``, a thread block a segment); the rest is
+plain torch ops on the arrays' device.  ``emit_segments_plain`` is the
+emission in torch ops, run for CPU tensors.  All arithmetic is integer and
+matches the JAX package bit for bit.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from .. import trace
+from .. import _build, trace
 from . import encode_kernel as ek
+from .device_codec import SEG
 from .greedy import greedy_parse
 
 OUT_PAD = 64  # per-lane output slack beyond the segment size
+KERNEL = "emit"
+# The kernel stages 2 * seg + OUT_PAD bytes a block in shared memory.
+MAX_SEG = 1 << 16
 
 _I32 = torch.int32
 _I64 = torch.int64
@@ -221,21 +229,91 @@ def _scatter_bytes(out, addr, vals):
                  (vals.reshape(rows, -1) & 255).to(torch.uint8))
 
 
+def _check(data, surv, off, vlen, seg: int):
+    if data.dim() != 2:
+        raise ValueError("data must be a [B, N] tensor")
+    for name, t in (("surv", surv), ("off", off), ("vlen", vlen)):
+        if t.shape != data.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} must have data's "
+                             f"shape {tuple(data.shape)}")
+        if t.device != data.device:
+            raise ValueError(f"{name} is on {t.device}, data on "
+                             f"{data.device}")
+    if not 0 < seg <= MAX_SEG or data.shape[1] % seg:
+        raise ValueError(f"N = {data.shape[1]} must be a multiple of seg "
+                         f"{seg}, 0 < seg <= {MAX_SEG}")
+
+
 def emit_segments(data, surv, off, vlen, n, seg: int):
     """Serialize verified tokens into per-segment MinLZ byte streams.
 
     data: [B, N] block bytes (any integer dtype); surv/off/vlen: [B, N]
     int32 verified parse arrays; n: [B] valid bytes (tensor or sequence).
     N must be a multiple of seg.  Returns (out [B, nseg, seg + OUT_PAD]
-    uint8, out_lens [B, nseg] int32).
+    uint8, out_lens [B, nseg] int32), zeros after each segment's length.
+
+    CUDA tensors: one launch of the emit kernel, a thread block a segment,
+    no synchronisation; CPU tensors: ``emit_segments_plain``.  Both give
+    the same bytes.
+    """
+    _check(data, surv, off, vlen, seg)
+    if data.device.type == "cpu":
+        return emit_segments_plain(data, surv, off, vlen, n, seg)
+    if data.device.type != "cuda":
+        raise ValueError(f"no emit kernel for device {data.device}")
+    B, N = data.shape
+    nseg = N // seg
+    trace.count("emit.kernel_rows", B * nseg)
+    dev = data.device
+    args = [data.to(torch.uint8).contiguous()]
+    args += [t.to(_I32).contiguous() for t in (surv, off, vlen)]
+    args.append(_lengths(n, B, dev).contiguous())
+    out = torch.empty((B, nseg, seg + OUT_PAD), dtype=torch.uint8,
+                      device=dev)
+    out_lens = torch.empty((B, nseg), dtype=_I32, device=dev)
+    with torch.cuda.device(dev):
+        launch_emit(*args, seg, out, out_lens)
+    return out, out_lens
+
+
+def launch_emit(data, surv, off, vlen, n, seg: int, out, out_lens):
+    """The bare launch of the emit kernel: checked, contiguous CUDA tensors
+    in (data [B, N] uint8, surv/off/vlen [B, N] int32, n [B] int32), out
+    [B, N // seg, seg + OUT_PAD] uint8 and out_lens [B, N // seg] int32
+    written in place, every element (any contents before).  No check, no
+    allocation; measurements time this."""
+    lib = _build.load()
+    B, N = data.shape
+    _build.check(lib, lib.minlz_emit(
+        data.data_ptr(), surv.data_ptr(), off.data_ptr(), vlen.data_ptr(),
+        n.data_ptr(), B * (N // seg), N // seg, seg, out.data_ptr(),
+        out_lens.data_ptr(), _build.stream_of(data)))
+    _build.count_launch(KERNEL)
+
+
+def kernel_attrs(seg: int = SEG) -> dict:
+    """What the card made of the kernel at this seg: registers a thread,
+    shared memory a block (bytes, static and dynamic), threads a block,
+    blocks resident on one SM."""
+    lib = _build.load()
+    got = (ctypes.c_int * 4)()
+    _build.check(lib, lib.minlz_emit_attrs(seg, got))
+    return dict(zip(("registers", "shared_bytes", "threads", "blocks_per_sm"),
+                    got))
+
+
+def emit_segments_plain(data, surv, off, vlen, n, seg: int):
+    """``emit_segments`` in torch ops, on any device.
 
     Every segment is one row of the work arrays, whatever block it belongs
     to: all the steps run along a segment's positions.
     """
+    _check(data, surv, off, vlen, seg)
     B, N = data.shape
     nseg = N // seg
     S = seg
     R = B * nseg
+    trace.count("emit.plain_rows", R)
     dev = data.device
     d = data.reshape(R, S)
     take = surv.reshape(R, S) > 0
@@ -379,7 +457,7 @@ def encode_block_emit(data, n, seg: int, rng: int = 0, level: int = 2,
     of seg); n: [B] valid lengths.  Returns (out [B, nseg - ctx,
     seg + OUT_PAD] uint8, out_lens [B, nseg - ctx] int32).  Correct by
     construction (byte-exact verification).  On a CUDA tensor the greedy
-    parse launches its kernel.
+    parse and the emission launch their kernels.
 
     ctx > 0: the first ``ctx`` segments are dictionary/context history —
     match finding, parsing and verification see them (copies may reach

@@ -1,7 +1,8 @@
 """Measure the all-device encode (``emit.encode_block_emit``: match find,
 greedy parse, verify, token emission) on one corpus block: device time per
-MB and ratio, then the time of each stage (the greedy parse also as its
-kernel alone, the bare launch into a preallocated output), against the host
+MB and ratio, then the time of each stage (the greedy parse and the token
+emission also as their kernels alone, the bare launches into preallocated
+outputs), against the host
 serializer on the same match proposals.  The emitted block is decoded by the
 spec oracle.
 
@@ -24,14 +25,15 @@ from ..native.codec import get_codec
 from ..ops import encode_kernel as ek
 from ..ops import greedy as tg
 from ..ops.device_codec import RANGE, SEG, WINDOW
-from ..ops.emit import emit_segments, encode_block_emit, verify_extend
+from ..ops.emit import (OUT_PAD, emit_segments, encode_block_emit,
+                       launch_emit, verify_extend)
 from ..oracle import decode as odec
 
 
 def stage_split(flat, n: int, iters: int, where: str) -> dict:
     """Seconds of each stage of ``encode_block_emit`` on ``flat`` [1, n],
-    as it runs them, and of the greedy kernel alone on the card (None on the
-    CPU, where there is no kernel)."""
+    as it runs them, and of the greedy and emit kernels alone on the card
+    (None on the CPU, where there is no kernel)."""
     dev = flat.device
     on_card = dev.type == "cuda"
     ns = [n]
@@ -55,12 +57,26 @@ def stage_split(flat, n: int, iters: int, where: str) -> dict:
     t_verify, (surv, vlen) = timed_device(
         lambda: verify_extend(flat, take, tok_off, ns, SEG), (), iters,
         device=dev)
-    t_emit, _ = timed_device(
+    t_emit, (e_out, e_lens) = timed_device(
         lambda: emit_segments(flat, surv, tok_off, vlen, ns, SEG), (), iters,
         device=dev)
+    e_alone = None
+    if on_card:
+        data = flat.to(torch.uint8)
+        n_t = torch.tensor(ns, dtype=torch.int32, device=dev)
+        out = torch.empty_like(e_out)
+        lens_out = torch.empty_like(e_lens)
+        assert out.shape[-1] == SEG + OUT_PAD
+        e_alone, _ = timed_device(
+            lambda: launch_emit(data, surv, tok_off, vlen, n_t, SEG, out,
+                                lens_out), (), iters, device=dev)
+        if not torch.equal(out, e_out) or not torch.equal(lens_out, e_lens):
+            raise AssertionError("the bare emit launch differs from "
+                                 "emit_segments")
     per_mb = n / MB
     res = {"match_find": t_find, "greedy": t_greedy, "greedy_alone": alone,
-           "verify_extend": t_verify, "emit_segments": t_emit}
+           "verify_extend": t_verify, "emit_segments": t_emit,
+           "emit_alone": e_alone}
     print("stages, ms/MB: " + ", ".join(
         f"{k} " + ("not measured" if v is None else f"{v * 1e3 / per_mb:.4f}")
         for k, v in res.items()) + f"  [{where}]", flush=True)

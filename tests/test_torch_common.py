@@ -136,6 +136,124 @@ def greedy_edge_cases(seg: int, windows=GREEDY_WINDOWS):
     return cases
 
 
+# The corpora of tests/test_emit.py, made from the Twain text and a
+# generator.
+EMIT_CORPORA = {
+    "text": lambda t, r: (t * 6)[: 64 * 1024],
+    "runs": lambda t, r: (b"abcabc" * 150 + bytes(400) + b"zz" * 600) * 16,
+    "lowent": lambda t, r: r.integers(0, 8, 64 * 1024, np.uint8).tobytes(),
+    "partial_tail": lambda t, r: (t * 2)[:20000],
+    "json": lambda t, r: b"".join(
+        b'{"k":%d,"v":"%s"}\n' % (i, bytes(t[i % 97 : i % 97 + 9]))
+        for i in range(3000)
+    ),
+}
+
+
+def emit_corpus(twain, name):
+    return EMIT_CORPORA[name](twain, np.random.default_rng(11))
+
+
+# Token layouts that corner emit_segments (the CUDA kernel walks a row in
+# tiles of 1024 positions, so several fall on or cross multiples of 1024).
+EMIT_CASES = ("lit_runs", "rep_across_tiles", "fused", "copy1_long",
+              "copy3_far", "random_mix")
+
+
+def _row_tokens(name, seg_n, rng):
+    """(pos, off, len) tokens of one segment row of seg_n valid bytes,
+    ascending and not overlapping; each len >= 4 and pos + len <= seg_n.
+    Each row takes the case's (literals, offset, length) triples in an
+    order of its own, so that the rows of a case cover all of them."""
+    if name == "rep_across_tiles":
+        # Equal offsets on both sides of every multiple of 1024: a repeat
+        # right at the boundary, one after 4 literals, one after a token
+        # that crosses the boundary.
+        want = [(0, 777, 9)]
+        for b in range(1024, seg_n + 1024, 1024):
+            want += [(b - 8, 777, 8), (b, 777, 5), (b + 9, 777, 6),
+                     (b + 100, 3000, 20), (b + 1000, 3000, 40),
+                     (b + 1040, 3000, 9)]
+        return _fit(want, seg_n)
+    if name == "lit_runs":
+        # Literal runs of 1-5, 29/30, 285/286 and 2000 (longer than a tile)
+        # before copy1, copy2 and copy3 tokens; the flush follows.
+        triples = [(nl, off, 12) for nl in (29, 30, 285, 286, 1, 2, 3, 4, 5,
+                                            0, 2000)
+                   for off in (5, 1000, 5000, 70000)]
+    elif name == "fused":
+        # fused2 with 1-4 literals and lengths 4-300 (an extension above
+        # 11), fused3 with 1-3 literals; 4 literals at a copy3 offset and
+        # offsets below 64 are not fused.
+        triples = [(nl, off, ln) for nl in (1, 2, 3, 4)
+                   for off in (63, 64, 65, 1024, 1025, 65599, 65600, 100000)
+                   for ln in (4, 7, 11, 12, 40, 300)]
+    elif name == "copy1_long":
+        # copy1 on both sides of 18 and 273 (a repeat extension above it),
+        # with and without literals before it.
+        triples = [(nl, off, ln)
+                   for ln in (4, 18, 19, 273, 274, 285, 286, 302, 600, 2000)
+                   for nl in (0, 7) for off in (1, 64, 1024)]
+    elif name == "copy3_far":
+        # copy3 offsets whose word wraps int32 (near and past 2^21 + 65536),
+        # at lengths on both sides of 64 and 319 (one and two extension
+        # bytes), fused (1-3 literals) and not.
+        triples = [(nl, off, ln)
+                   for off in (65600, 70000, (1 << 21) + 65535, 1 << 21,
+                               (1 << 21) + 65537, 8 << 20)
+                   for ln in (8, 64, 65, 319, 320, 1000)
+                   for nl in (0, 2, 9)]
+    else:  # random_mix: a fifth of the takes repeat the previous offset
+        triples, prev = [], 1
+        for _ in range(seg_n // 4):
+            off = prev if rng.random() < 0.2 else int(rng.choice(
+                [rng.integers(1, 1025), rng.integers(64, 65600),
+                 rng.integers(65600, 4 << 20)]))
+            triples.append((int(rng.choice([0, 0, 1, 2, 3, 4, 5, 12, 40,
+                                            300])),
+                            off, int(rng.choice([4, 5, 8, 13, 30, 100, 280,
+                                                 1500]))))
+            prev = off
+    if name != "random_mix":
+        triples = [triples[i] for i in rng.permutation(len(triples))]
+    want, cur = [], 0
+    for nl, off, ln in triples:
+        want.append((cur + nl, off, ln))
+        cur += nl + ln
+    return _fit(want, seg_n)
+
+
+def _fit(want, seg_n):
+    out, end = [], 0
+    for pos, off, ln in want:
+        if pos >= end and pos + ln <= seg_n:
+            out.append((pos, off, ln))
+            end = pos + ln
+    return out
+
+
+def emit_edge_case(name: str, seg: int):
+    """Verified parse arrays for ``name`` of EMIT_CASES, from a seed: (data
+    [B, N] uint8, surv, off, vlen [B, N] int32, n [B] int32), three blocks
+    of four segments: a whole one, one whose last segment is partial and
+    one whose last two segments are empty.  The tokens need not match the
+    bytes: emission copies what it is given."""
+    rng = np.random.default_rng(sum(map(ord, name)) + seg)
+    nseg = 4
+    N = nseg * seg
+    ns = np.array([N, N - seg // 3, 2 * seg - 777], np.int32)
+    B = len(ns)
+    data = rng.integers(0, 256, (B, N), dtype=np.uint8)
+    surv, off, vlen = (np.zeros((B, N), np.int32) for _ in range(3))
+    for b in range(B):
+        for s in range(nseg):
+            seg_n = int(min(max(ns[b] - s * seg, 0), seg))
+            for pos, o, ln in _row_tokens(name, seg_n, rng):
+                at = s * seg + pos
+                surv[b, at], off[b, at], vlen[b, at] = 1, o, ln
+    return data, surv, off, vlen, ns
+
+
 def encode_segs(data: bytes, seg: int, rng: int, level: int = 2):
     """The port's CPU encode of one block, checked against the oracle, as
     the list of its segments' compressed bytes."""

@@ -491,6 +491,140 @@ def test_greedy_wrapper_rejects_on_the_card():
         tg.greedy_parse(off, off.cpu(), 64)
 
 
+# ---- the emit kernel ------------------------------------------------------
+
+EMIT_REAL = ["corpus-" + c for c in ("json", "lowent", "partial_tail", "runs",
+                                     "text")]
+EMIT_REAL += ["seg-8192", "seg-16384", "partial_empty", "ctx1"]
+EMIT_SYNTH = [f"{c}-{seg}" for c in ("lit_runs", "rep_across_tiles", "fused",
+                                     "copy1_long", "copy3_far", "random_mix")
+              for seg in (4096, 8192, 16384)]
+
+
+def emit_inputs(case, twain, dev):
+    """(data, surv, off, vlen, n, seg) of an emit_segments call on ``dev``.
+    Real cases run the encoder's stages before emission on ``dev``
+    (match find, greedy parse, verify): the corpora of
+    tests/test_torch_emit.py at 4 KiB segments, 256 KiB of text at 8 and
+    16 KiB, blocks of unequal length (a partial last segment, empty
+    trailing ones), and a first segment of context (``ctx = 1``: column
+    slices, as encode_block_emit passes them).  Synthetic cases are
+    test_torch_common.emit_edge_case."""
+    from minlz_tpu_torch.ops import emit
+    from minlz_tpu_torch.ops import encode_kernel as tek
+    from minlz_tpu_torch.ops import greedy as tg
+    from test_torch_common import emit_corpus, emit_edge_case, pad_block
+
+    name, _, arg = case.partition("-")
+    if case not in EMIT_REAL:
+        data, surv, off, vlen, n = emit_edge_case(name, int(arg))
+        t = [torch.from_numpy(a).to(dev) for a in (data, surv, off, vlen, n)]
+        return (*t, int(arg))
+    seg, ctx = 4096, 0
+    if name == "corpus":
+        blocks = [emit_corpus(twain, arg)]
+    elif name == "seg":
+        seg = int(arg)
+        blocks = [(twain * 6)[: 256 << 10]]
+    elif name == "partial_empty":
+        blocks = [(twain * 6)[: 64 << 10], twain[:20000], twain[7000:12000]]
+    else:
+        ctx = 1
+        blocks = [(twain * 6)[: 64 << 10], twain[:30000]]
+    N = max(pad_block(b, seg)[0].shape[1] for b in blocks)
+    arr = np.zeros((len(blocks), N), np.uint8)
+    for i, b in enumerate(blocks):
+        arr[i, : len(b)] = np.frombuffer(b, np.uint8)
+    data = torch.from_numpy(arr).to(dev)
+    n = torch.tensor([len(b) for b in blocks], dtype=torch.int32, device=dev)
+    dist, length = tek.find_matches_dyn(data, n, seg, 0, 2)
+    take, tok_off, _, _ = tg.greedy_parse(
+        dist.to(torch.int32).reshape(-1, seg),
+        length.to(torch.int32).reshape(-1, seg), seg)
+    take, tok_off = take.reshape(data.shape), tok_off.reshape(data.shape)
+    surv, vlen = emit.verify_extend(data, take, tok_off, n, seg)
+    C = ctx * seg
+    return data[:, C:], surv[:, C:], tok_off[:, C:], vlen[:, C:], n - C, seg
+
+
+@pytest.mark.parametrize("case", EMIT_REAL + EMIT_SYNTH)
+def test_emit_kernel_matches_plain(twain, case):
+    """emit_segments on CUDA (one launch of the emit kernel, no call that
+    synchronises with the host) against emit_segments_plain on the same
+    CUDA inputs, bit for bit: out, zeros after each length included, and
+    out_lens; the bare launch into outputs filled with 0x7f gives the same
+    (every element is written)."""
+    from minlz_tpu_torch import _build
+    from minlz_tpu_torch.ops import emit
+
+    _need_gpu()
+    data, surv, off, vlen, n, seg = emit_inputs(case, twain, "cuda")
+    if case == "ctx1":
+        assert not data.is_contiguous()
+    before = _build.launch_counts()["emit"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, lens = emit.emit_segments(data, surv, off, vlen, n, seg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["emit"] == before + 1
+    want_out, want_lens = emit.emit_segments_plain(data, surv, off, vlen, n,
+                                                   seg)
+    assert out.dtype == torch.uint8 and lens.dtype == torch.int32
+    assert torch.equal(lens, want_lens)
+    assert torch.equal(out, want_out)
+    assert int(surv.sum()) > 0 and int(lens.max()) <= seg + emit.OUT_PAD
+
+    raw = torch.full_like(out, 0x7F)
+    raw_lens = torch.full_like(lens, 0x7F7F7F7F)
+    emit.launch_emit(data.contiguous(),
+                     *(t.contiguous() for t in (surv, off, vlen, n)), seg,
+                     raw, raw_lens)
+    torch.cuda.synchronize()
+    assert torch.equal(raw, want_out) and torch.equal(raw_lens, want_lens)
+
+
+def test_emit_counters_on_the_card(twain):
+    """encode_block_emit on CUDA: one emit launch a call, and under a
+    profiler every segment row counted as the kernel's, none as the plain
+    version's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from minlz_tpu_torch import _build, trace
+    from minlz_tpu_torch.ops import emit
+
+    _need_gpu()
+    flat = np.zeros((3, 32768), np.uint8)
+    flat[0] = np.frombuffer((twain * 3)[:32768], np.uint8)
+    flat[1, :9000] = np.frombuffer(twain[:9000], np.uint8)
+    data = torch.from_numpy(flat).cuda()
+    before = _build.launch_counts()["emit"]
+    for k in range(2):
+        emit.encode_block_emit(data, [32768, 9000, 1], 4096)
+        assert _build.launch_counts()["emit"] == before + k + 1
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        emit.encode_block_emit(data, [32768, 9000, 1], 4096)
+    counters = trace.snapshot()["counters"]
+    trace.reset()
+    assert counters["emit.kernel_rows"] == 3 * 8
+    assert counters.get("emit.plain_rows", 0) == 0
+
+
+def test_emit_kernel_attrs():
+    """The card takes a block of the kernel at every segment size the codec
+    uses, several to an SM."""
+    from minlz_tpu_torch.ops import emit
+
+    _need_gpu()
+    for seg in (4096, 8192, 16384):
+        a = emit.kernel_attrs(seg)
+        assert a["threads"] == 256 and a["blocks_per_sm"] >= 2, a
+        assert a["shared_bytes"] >= 2 * seg + emit.OUT_PAD, a
+
+
 # ---- the probe kernels ----------------------------------------------------
 
 def _cuda(*arrays):

@@ -19,23 +19,12 @@ from minlz_tpu_torch.ops import emit as temit
 from minlz_tpu_torch.ops import greedy as tg
 from minlz_tpu_torch.oracle import decode as odec
 
-from test_torch_common import SEG, both, pad_block, real_proposals
+from test_torch_common import (EMIT_CASES, EMIT_CORPORA, SEG, both,
+                               emit_corpus, emit_edge_case, pad_block,
+                               real_proposals)
 
-# The corpora of tests/test_emit.py.
-CORPORA = {
-    "text": lambda t, r: (t * 6)[: 64 * 1024],
-    "runs": lambda t, r: (b"abcabc" * 150 + bytes(400) + b"zz" * 600) * 16,
-    "lowent": lambda t, r: r.integers(0, 8, 64 * 1024, np.uint8).tobytes(),
-    "partial_tail": lambda t, r: (t * 2)[:20000],
-    "json": lambda t, r: b"".join(
-        b'{"k":%d,"v":"%s"}\n' % (i, bytes(t[i % 97 : i % 97 + 9]))
-        for i in range(3000)
-    ),
-}
-
-
-def _corpus(twain, name):
-    return CORPORA[name](twain, np.random.default_rng(11))
+CORPORA = EMIT_CORPORA
+_corpus = emit_corpus
 
 
 def _parsed(data):
@@ -165,3 +154,69 @@ def test_encode_batch_emit_unequal_blocks_match_jax_codec(twain, codecs):
             # The port's own device decoder reads its hints.
             _, want_len, pos = odec.parse_header(res[0])
             assert tcodec.decode(res[0][pos:], res[1], want_len) == b
+
+
+@pytest.mark.parametrize("name", sorted(CORPORA))
+def test_emit_segments_dispatches_to_plain_on_the_cpu(twain, name):
+    """On CPU tensors emit_segments is emit_segments_plain: the bytes of
+    the JAX emission, no kernel launch, every segment row counted as the
+    plain version's while a profiler records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from minlz_tpu_torch import _build, trace
+
+    flat, n, take, tok_off = _parsed(_corpus(twain, name))
+    (jflat, jtake, joff), (tflat, ttake, toff) = both(flat, take, tok_off)
+    jsurv, jvlen = jemit.verify_extend(jflat.reshape(-1), jtake, joff, n, SEG)
+    jout, jlens = jemit.emit_segments(jflat.reshape(-1), jsurv, joff, jvlen,
+                                      n, SEG)
+    tsurv, tvlen = temit.verify_extend(tflat, ttake[None], toff[None], [n],
+                                       SEG)
+    before = _build.launch_counts()["emit"]
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        tout, tlens = temit.emit_segments(tflat, tsurv, toff[None], tvlen,
+                                          [n], SEG)
+    counters = trace.snapshot()["counters"]
+    trace.reset()
+    assert _build.launch_counts()["emit"] == before
+    assert counters["emit.plain_rows"] == flat.shape[1] // SEG
+    assert "emit.kernel_rows" not in counters
+    pout, plens = temit.emit_segments_plain(tflat, tsurv, toff[None], tvlen,
+                                            [n], SEG)
+    assert torch.equal(tout, pout) and torch.equal(tlens, plens)
+    np.testing.assert_array_equal(tlens.numpy()[0], np.asarray(jlens))
+    np.testing.assert_array_equal(tout.numpy()[0], np.asarray(jout))
+
+
+@pytest.mark.parametrize("case", EMIT_CASES)
+def test_emit_segments_edge_cases_match_jax(case):
+    """The token layouts the card test holds the kernel to (literal runs
+    around every header size, repeats across multiples of 1024, fused2 and
+    fused3, long copy1, copy3 words that wrap int32, a random mix; a
+    partial and two empty segments), block by block against the JAX
+    emission."""
+    data, surv, off, vlen, ns = emit_edge_case(case, SEG)
+    tout, tlens = temit.emit_segments(*(torch.from_numpy(a) for a in (
+        data, surv, off, vlen)), torch.from_numpy(ns), SEG)
+    assert int(tlens.max()) <= SEG + temit.OUT_PAD
+    for b in range(data.shape[0]):
+        jd, js, jo, jv = (jnp.asarray(a[b].astype(np.int32))
+                          for a in (data, surv, off, vlen))
+        jout, jlens = jemit.emit_segments(jd, js, jo, jv, int(ns[b]), SEG)
+        np.testing.assert_array_equal(tlens.numpy()[b], np.asarray(jlens))
+        np.testing.assert_array_equal(tout.numpy()[b], np.asarray(jout))
+
+
+def test_emit_segments_rejects():
+    z = torch.zeros((2, 8192), dtype=torch.int32)
+    with pytest.raises(ValueError, match="multiple of seg"):
+        temit.emit_segments(z, z, z, z, [1, 1], 3000)
+    with pytest.raises(ValueError, match="multiple of seg"):
+        temit.emit_segments(z, z, z, z, [1, 1], 2 * temit.MAX_SEG)
+    with pytest.raises(ValueError, match="shape"):
+        temit.emit_segments(z, z[:1], z, z, [1, 1], 4096)
+    with pytest.raises(ValueError, match=r"\[B, N\]"):
+        temit.emit_segments(z[0], z[0], z[0], z[0], [1], 4096)
+    with pytest.raises(ValueError, match="multiple of seg"):
+        temit.emit_segments_plain(z, z, z, z, [1, 1], 3000)

@@ -261,3 +261,20 @@ def test_threads_lose_no_span_or_count():
     assert snap["spans"]["outer"]["parent"] is None
     assert snap["spans"]["inner"]["parent"] == "outer"
     assert snap["spans"]["outer"]["self_s"] <= snap["spans"]["outer"]["host_s"]
+
+
+def test_emit_rows_counted_as_plain_on_the_cpu(blocks):
+    """A device_emit batch on the CPU: every segment row goes through
+    emit_segments_plain (emit.plain_rows), none through the kernel, which
+    is never launched."""
+    from minlz_tpu_torch import _build
+
+    codec = DeviceCodec("cpu")
+    before = _build.launch_counts()["emit"]
+    with profile(activities=[ProfilerActivity.CPU]):
+        codec.encode_batch_emit(blocks)
+    seg, arr, _ = codec._emit_batch(blocks)
+    counters = trace.snapshot()["counters"]
+    assert counters["emit.plain_rows"] == arr.shape[0] * arr.shape[1] // seg
+    assert "emit.kernel_rows" not in counters
+    assert _build.launch_counts()["emit"] == before
