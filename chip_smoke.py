@@ -77,7 +77,14 @@ The search path writes the corpus, with patterns planted, through
 Writer(search_table=SearchTableConfig()) (tables built on the card by
 build_tables_device), reads it back, holds every block's table and a
 match_len/bits sweep of bitmaps against the NumPy builder, and searches it
-with BlockSearcher ("time search" line).  Then it times each phase.  It
+with BlockSearcher ("time search" line).  The unhinted path writes the
+corpus as the format's other writers do (Writer(device=None), 2 MiB blocks,
+no parse hints) and reads it on the card through Reader.readall and
+Reader.read, every block's lanes derived on the card (csrc/derive.cu); the
+derivation is held against derive_plan_plain, every lane, range and verdict
+tensor exactly, and K1 against its plain version on derived lanes that
+enter with their repeat offsets ("time derive" line: alone, through
+derive_plan, the plain version).  Then it times each phase.  It
 imports nothing of jax or of the JAX package.  Prints a JSON line of kernel
 results, then, as its last line, {"ok": true, "device": {...}}.  Any failure
 raises and exits non-zero.
@@ -89,7 +96,9 @@ The cli path runs last, after every other time: the mz command line
 its range on the card, `bench -device` prints its line ("time cli" lines:
 the CLI's own rate and the main call's, file to file), `c -device -search`
 and `s -c` find each planted pattern, `c` and `d` on the host route
-(main(argv, device=None)) build no DeviceCodec, and `--traceprof D d
+(main(argv, device=None)) build no DeviceCodec, `d` on the card decodes the
+host route's stream, which has no parse hints, with every block's lanes
+derived on the card (csrc/derive.cu), and `--traceprof D d
 -device` decodes with K1, the lane offset scan, K2 and K3 in its trace and
 prints the device's idle share.  The device-resident decode lines are then
 timed again ("time after the cli path").
@@ -194,6 +203,10 @@ KERNELS = {
     "exec_sched": ("minlz_tpu_torch/csrc/exec_range.cu",
                    "minlz_tpu/ops/exec_chain.py:438", "exec_sched",
                    "scheduled"),
+    # The lane plan of blocks without parse hints, which the TPU package
+    # decoded on the host: no Pallas kernel of its own.
+    "derive": ("minlz_tpu_torch/csrc/derive.cu",
+               "minlz_tpu/stream/reader.py:345", "derive", "unhinted"),
     # The probe kernels run on the "probes" path: the port's measurement
     # scripts at their default sizes.
     "probe_scalar": ("minlz_tpu_torch/csrc/probe.cu",
@@ -1327,7 +1340,9 @@ def cli_path(corpus, dev, card):
     `d -offset` decodes the blocks it touches on the card; `bench -device -n
     3` prints its line; `c -device -search` then `s -c` finds each planted
     pattern as often as bytes.count does; `c` and `d` on the host route
-    (main(argv, device=None)) build no DeviceCodec.  Last, because the
+    (main(argv, device=None)) build no DeviceCodec, and `d` on the card
+    decodes the host route's stream (no parse hints) with a derive and an
+    exec_block launch a batch.  Last, because the
     profiler stays in the process, `--traceprof D d -device`: its trace holds
     K1, the lane offset scan, K2 and K3, a launch each for every batch of 8
     blocks, and gives the
@@ -1340,6 +1355,7 @@ def cli_path(corpus, dev, card):
 
     from minlz_tpu_torch import _build, cli
     from minlz_tpu_torch._device import resolve_device
+    from minlz_tpu_torch.minlz import DEFAULT_BLOCK_SIZE
     from minlz_tpu_torch.bench import trace_share
     from minlz_tpu_torch.ops.device_codec import DeviceCodec
     from minlz_tpu_torch.stream import Writer
@@ -1439,7 +1455,15 @@ def cli_path(corpus, dev, card):
             mz(["c", "-2", src, "-o", mzf + ".host"], device=None)
             mz(["d", mzf + ".host", "-o", src + ".host"], device=None)
             host_built, host_asked = len(built), len(asked)
-            mz(["d", mzf + ".host", "-o", src + ".host"])
+            if read(src + ".host") != corpus:
+                raise AssertionError("mz c / mz d on the host did not "
+                                     "round-trip")
+            # The host route's stream has no parse hints; the card route's
+            # d derives every block's lanes (derive, then the whole-block
+            # road), a launch of each a batch.
+            before = _build.launch_counts()
+            _, err, _ = mz(["d", mzf + ".host", "-o", src + ".host"])
+            after = _build.launch_counts()
         finally:
             DeviceCodec.__init__ = real_init
             dcm.get_device_codec = real_get
@@ -1448,8 +1472,19 @@ def cli_path(corpus, dev, card):
                 f"mz c and mz d on the host route built {host_built} "
                 f"DeviceCodec and asked for {host_asked}; the card route's d "
                 f"after them asked for {len(asked) - host_asked}, want 1")
-        if read(src + ".host") != corpus:
-            raise AssertionError("mz c / mz d on the host did not round-trip")
+        # The host route's Writer keeps the format's 2 MiB default blocks.
+        n_host = -(-len(corpus) // DEFAULT_BLOCK_SIZE)
+        host_batches = -(-n_host // BATCH_BLOCKS)
+        unhinted = {k: after[k] - before[k] for k in after}
+        if read(src + ".host") != corpus \
+                or f", {n_host} blocks on {resolve_device(dev)})" not in err \
+                or unhinted["derive"] != host_batches \
+                or unhinted["exec_block"] != host_batches \
+                or unhinted["exec_range"]:
+            raise AssertionError(
+                f"mz d of the host route's stream on the card: "
+                f"{err.strip()}; launches {unhinted}; want derive and "
+                f"exec_block {host_batches} times, exec_range none")
 
         prof = os.path.join(d, "prof")
         before = _build.launch_counts()
@@ -1493,7 +1528,9 @@ def cli_path(corpus, dev, card):
         f"{bench_out.strip().replace(src, 'corpus')}  [{card}]")
     log(f"main path (cli): mz c -device -search, then mz s -c finds each of "
         f"{len(PLANTED)} planted patterns as often as bytes.count; mz c and "
-        f"mz d on the host route built no DeviceCodec; launches {launches}; "
+        f"mz d on the host route built no DeviceCodec; its stream, without "
+        f"hints, decoded on the card by mz d: derive x{unhinted['derive']}, "
+        f"exec_block x{unhinted['exec_block']}; launches {launches}; "
         f"the path took {time.perf_counter() - t_path:.1f} s")
     return launches
 
@@ -1586,6 +1623,133 @@ def api_path(batch_segs, g_off, g_len, enc_in, ns, corpus, dev, card):
         f"this order: exact=True {exact_ms:.4f} ms, exact=False "
         f"{hashed_ms:.4f} ms, exact=True {exact2_ms:.4f} ms  [{card}]")
     return launches
+
+
+def derived_lanes(plan, first: int, n: int):
+    """Lanes [first, first + n) of a derived plan as a batch of their own:
+    (comp, lane_start, lane_len, lane_rep), the bytes they tile and their
+    starts counted from the first."""
+    start = plan["lane_start"][first:first + n]
+    lens = plan["lane_len"][first:first + n]
+    a = int(start[0])
+    b = int(start[-1] + lens[-1])
+    return (plan["comp"][a:b].contiguous(), (start - a).contiguous(),
+            lens.contiguous(), plan["lane_rep"][first:first + n].contiguous())
+
+
+def unhinted_path(corpus, dev, card):
+    """The unhinted path: the corpus written as the format's other writers
+    write it (Writer(device=None) at 2 MiB blocks, as mz c does: no chunk
+    0x88), then read by Reader(device=...) through readall (batches of
+    BATCH_BLOCKS) and read (a block a dispatch): every block derives its
+    lanes on the card (csrc/derive.cu), then K1 with each lane's incoming
+    repeat offset, the lane offset scan, K2 and the whole-block executor.
+    The launch counts are set to 0 just before readall and read just after
+    it.  Then the derivation is held against derive_plan_plain on the
+    stream's blocks (every lane, range and verdict tensor exactly), K1 with
+    the derived lane_rep against parse_segments_plain on PLAIN_LANES lanes,
+    and both are timed ("time derive" line).  Returns (launches, the
+    kernel's max abs err, its time through derive_plan as one call, the
+    plain version's time, its bound)."""
+    from minlz_tpu_torch import _build
+    from minlz_tpu_torch.minlz import read_uvarint
+    from minlz_tpu_torch.ops import derive
+    from minlz_tpu_torch.ops import parse as ps
+    from minlz_tpu_torch.ops.device_codec import get_device_codec
+    from minlz_tpu_torch.stream import Reader, Writer
+    from mzbench.derive_reference import plan_bytes
+
+    block = 2 * MB
+    n = -(-len(corpus) // block)
+    buf = io.BytesIO()
+    with Writer(buf, device=None, level=LEVEL, block_size=block) as w:
+        w.write(corpus)
+    stream = buf.getvalue()
+    if hinted_blocks(stream):
+        raise AssertionError("unhinted: Writer(device=None) wrote parse "
+                             "hints")
+    codec = get_device_codec(dev)
+    launches = None
+    for route in ("readall", "read"):
+        dec0 = codec.blocks_decoded
+        _build.reset_launches()
+        r = Reader(io.BytesIO(stream), device=dev)
+        back = r.readall() if route == "readall" else r.read()
+        torch.cuda.synchronize()
+        launches = launches or _build.launch_counts()
+        decoded = codec.blocks_decoded - dec0
+        if back != corpus or r.host_unhinted_blocks or r.hint_fallbacks \
+                or decoded != n:
+            raise AssertionError(
+                f"unhinted ({route}): exact {back == corpus}, "
+                f"{r.host_unhinted_blocks} blocks without hints and "
+                f"{r.hint_fallbacks} with hints on the host, {decoded} of "
+                f"{n} on the card")
+    log(f"main path (unhinted): {len(corpus) // MB} MiB -> {len(stream)} "
+        f"bytes by Writer(device=None), {n} x 2 MiB blocks without hints; "
+        f"Reader.readall (batches of {BATCH_BLOCKS}) and Reader.read (a block "
+        f"a dispatch) on the card == corpus, "
+        f"{n} of {n} blocks on the card, host_unhinted_blocks 0; launches "
+        f"{launches}")
+
+    bodies, wants = [], []
+    for pos, ctype, clen in chunks(stream):
+        if ctype in (0x02, 0x03):   # compressed data: CRC, uvarint, body
+            want, hdr = read_uvarint(stream, pos + 8)
+            bodies.append(stream[hdr:pos + 4 + clen])
+            wants.append(want)
+    if len(bodies) != n:
+        raise AssertionError(f"unhinted: {len(bodies)} compressed blocks, "
+                             f"want {n}")
+    lens = np.array([len(b) for b in bodies], np.int64)
+    comp = torch.from_numpy(np.frombuffer(b"".join(bodies), np.uint8)
+                            .copy()).to(dev)
+    body_off = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)])
+                                .astype(np.int64)).to(dev)
+    out_len = torch.tensor(wants, dtype=torch.int32, device=dev)
+    total = sum(wants)
+    plan = derive.derive_plan(comp, body_off, out_len, total, SEG)
+    plain, p_ms = once_ms(lambda: derive.derive_plan_plain(
+        comp, body_off, out_len, total, SEG))
+    err = 0
+    for k in derive.LANES + derive.RANGES + ("bad",):
+        err = max(err, require_equal(f"derive {k}", plan[k], plain[k]))
+    if int(plan["bad"]):
+        raise AssertionError("derive: a sound stream judged unsound")
+    reps = int((plan["lane_rep"] != 1).sum())
+    first = int(plan["range_lane"][1]) - PLAIN_LANES // 2
+    sub = derived_lanes(plan, first, PLAIN_LANES)
+    recs, counts = ps.parse_planned(*sub)
+    torch.cuda.synchronize()
+    recs_p, counts_p = ps.parse_segments_plain(*(x.cpu() for x in sub))
+    err = max(err, require_equal("parse with lane_rep, counts", counts,
+                                 counts_p),
+              require_equal("parse with lane_rep, records", recs, recs_p))
+    sub_reps = int((sub[3] != 1).sum())
+    if not sub_reps:
+        raise AssertionError("parse with lane_rep: no lane of the held "
+                             "batch enters with an offset other than 1")
+    del plain, recs, counts, recs_p, counts_p
+
+    scratch = derive.derive_scratch(comp, n)
+    bare = derive.empty_plan(comp, n, SEG)
+    alone = queued_ms(lambda: derive.launch_derive(
+        bare, body_off, out_len, total, SEG, scratch))
+    for k in derive.LANES + derive.RANGES + ("bad",):
+        require_equal(f"derive {k}, bare launch", bare[k], plan[k])
+    queued = queued_ms(lambda: derive.derive_plan(comp, body_off, out_len,
+                                                  total, SEG))
+    once = cuda_ms(lambda: derive.derive_plan(comp, body_off, out_len,
+                                              total, SEG))
+    moved = plan_bytes(lens.tolist(), SEG)
+    log(f"time derive: {n} x 2 MiB blocks without hints, {comp.numel()} "
+        f"compressed bytes, {plan['lane_len'].numel()} lanes ({reps} enter "
+        f"with an offset other than 1; the {PLAIN_LANES} across the first "
+        f"block's end held through K1: {sub_reps}); alone {alone:.4f} ms, "
+        f"derive_plan {queued:.4f} ms queued, {once:.4f} ms as one call, "
+        f"plain version {p_ms:.4f} ms; {moved / 1e6:.2f} MB to move (the "
+        f"bodies read once, the walk's lanes written once)  [{card}]")
+    return launches, err, once, p_ms, bound(moved, 0)
 
 
 def blocks_touched(off: int, n: int, block: int = MB) -> int:
@@ -2145,13 +2309,17 @@ def main():
                                       streams["device_emit"])
     path_launches["search"] = search_path(corpus, dev, card)
     del streams
+    (path_launches["unhinted"], err["derive"], k_ms["derive"],
+     plain_ms["derive"], bounds["derive"]) = unhinted_path(corpus, dev, card)
 
     for name, (_, _, count, path) in KERNELS.items():
         if path != "probes" and path_launches[path][count] <= 0:
             raise AssertionError(f"kernel {name} never ran on the {path} "
                                  f"path")
     for path, counts in (("mesh", ("greedy", "emit", "parse")),
-                         ("search", ("parse", "compact", "exec_range"))):
+                         ("search", ("parse", "compact", "exec_range")),
+                         ("unhinted", ("parse", "lane_offsets", "compact",
+                                       "exec_block"))):
         for count in counts:
             if path_launches[path][count] <= 0:
                 raise AssertionError(
@@ -2162,11 +2330,15 @@ def main():
                 raise AssertionError(
                     f"kernel {count} never ran on the {path} path")
     for path, idle in (("serializer", ("greedy", "emit", "exec_block",
-                                       "exec_sched", "compact_dense")),
+                                       "exec_sched", "compact_dense",
+                                       "derive")),
                        ("unclamped", ("greedy", "emit", "exec_range",
-                                      "exec_sched", "compact_dense")),
+                                      "exec_sched", "compact_dense",
+                                      "derive")),
                        ("scheduled", ("greedy", "exec_range", "exec_block",
-                                      "compact"))):
+                                      "compact", "derive")),
+                       ("unhinted", ("greedy", "emit", "exec_range",
+                                     "exec_sched", "compact_dense"))):
         for count in idle:
             if path_launches[path][count] != 0:
                 raise AssertionError(f"the {path} path launched {count}")
@@ -2250,7 +2422,7 @@ def main():
             raise AssertionError(f"kernel {name} never ran on the probes "
                                  f"path")
     for count in ("parse", "compact", "exec_range", "exec_block", "greedy",
-                  "emit"):
+                  "emit", "derive"):
         if path_launches["probes"][count] != 0:
             raise AssertionError(f"the probes path launched {count}")
     log(f"main path (probes): kernel_probe, exec_probe body and ablate_exec "
@@ -2381,8 +2553,9 @@ def main():
     for count in ("parse", "compact", "exec_range"):
         if path_launches["cli"][count] <= 0:
             raise AssertionError(f"kernel {count} never ran on the cli path")
-    for count in ("greedy", "emit", "exec_block", "exec_sched",
-                  "compact_dense"):
+    # exec_block and derive run for the host route's stream, which has no
+    # hints (cli_path checks their counts).
+    for count in ("greedy", "emit", "exec_sched", "compact_dense"):
         if path_launches["cli"][count] != 0:
             raise AssertionError(f"the cli path launched {count}")
     for label, fn, reps, before in (
@@ -2407,6 +2580,8 @@ def main():
               "greedy": "16 x 1 MiB batch, greedy_parse as one call",
               "emit": "16 x 1 MiB batch, emit_segments as one call",
               "exec_block": "8 x 1 MiB batch without the clamp",
+              "derive": f"{STREAM_MB // 2} x 2 MiB blocks without hints, "
+                        f"lanes of {SEG} bytes, through derive_plan",
               "compact_whole": "8 x 1 MiB batch without the clamp",
               "lane_offsets": "8 x 1 MiB batch, the lane counts",
               "probe_scalar": f"{SCALAR_STEPS} steps x "

@@ -35,16 +35,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS = ("parse", "lane_offsets", "compact", "exec_range", "greedy",
            "exec_block", "compact_dense", "exec_sched", "probe_scalar",
            "probe_gather", "probe_taa", "probe_chain_body", "ablate_exec",
-           "emit")
+           "emit", "derive")
 _launches = dict.fromkeys(KERNELS, 0)
 _lock = threading.Lock()
 _lib = None
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    # comp, n_comp, lane_start, lane_len, lanes, recs, n_slots, counts,
-    # stream
-    "minlz_parse": [_P, ctypes.c_longlong, _P, _P, ctypes.c_int, _P,
+    # comp, n_comp, lane_start, lane_len, lane_rep (or null), lanes, recs,
+    # n_slots, counts, stream
+    "minlz_parse": [_P, ctypes.c_longlong, _P, _P, _P, ctypes.c_int, _P,
                     ctypes.c_longlong, _P, _P],
     # lane_cnt, lanes, lane_out, stream
     "minlz_lane_offsets": [_P, ctypes.c_int, _P, _P],
@@ -72,6 +72,12 @@ _SIGNATURES = {
     "minlz_greedy": [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P],
     # out[4]: registers, shared bytes, threads, resident blocks a SM
     "minlz_greedy_attrs": [_P],
+    # comp, n_comp, body_off, out_len, n_blocks, total_out, seg, lanes,
+    # lane_start, lane_len, lane_lo, lane_hi, lane_rep, range_lane,
+    # range_out, range_span, bad, boff, tab, stream
+    "minlz_derive": [_P, ctypes.c_longlong, _P, _P, ctypes.c_int,
+                     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P,
+                     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # data, surv, off, vlen, n, rows, nseg, seg, out, out_lens, stream
     "minlz_emit": [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, _P, _P, _P],

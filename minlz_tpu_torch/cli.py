@@ -799,8 +799,9 @@ def main(argv=None, device="cuda") -> int:
         pd.add_argument("-cpu", type=int, default=0,
                         help="concurrent block decode threads")
         pd.add_argument("-device", action="store_true",
-                        help="decode the hinted blocks on the card (the "
-                             "default route)")
+                        help="decode the compressed blocks on the card, "
+                             "with parse hints or without (the default "
+                             "route)")
         pd.add_argument("-o", dest="output")
         pd.add_argument("files", nargs="+")
         pd.set_defaults(fn=lambda a, s=stdout: cmd_decompress(a, s))

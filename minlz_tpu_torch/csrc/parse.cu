@@ -43,80 +43,20 @@
 // fault: every read is bounded by the lane and by comp.
 
 #include "common.cuh"
+#include "token.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWindow = 2048;                     // ops/parse_model.py: WINDOW
-constexpr int kHalo = 16;                         // bytes a decode may read
+using minlz_token::kHalo;                         // bytes a decode may read
+using minlz_token::Tok;
+using minlz_token::decode;
+using minlz_token::stage_window;
 constexpr int kStage = kWindow + kHalo + 16;      // + the alignment shift
 constexpr int kOut = 0xFFFF;                      // nxt leaves the window
 constexpr unsigned kFull = 0xffffffffu;
 enum { OP_LIT = 1, OP_COPY = 2 };
-
-// The token that starts at s[0] (s[0 .. kHalo) staged, 0 past the lane
-// end), at lane offset i of a lane of n bytes.
-struct Tok {
-  bool lit, imm, pend, rep, sets, complete, done;
-  int litcnt, L, e, clen, off, pa;
-  unsigned w;      // output bytes the token adds to dpos
-  long long nxt;   // lane offset of the next token
-};
-
-__device__ __forceinline__ Tok decode(const unsigned char* s, int i, int n) {
-  const int b0 = s[0];
-  const int tag = b0 & 3, val = b0 >> 2;
-  const bool c3 = (val & 1) != 0;
-  const int code0 = val >> 1;
-  const int c3_code = (val >> 3) | ((s[1] & 7) << 3);
-  int off_bytes, code, lext;
-  if (tag == 0) {
-    off_bytes = 0, code = code0, lext = max(code0 - 28, 0);
-  } else if (tag == 1) {
-    off_bytes = 1, code = val & 15, lext = code == 15;
-  } else if (tag == 2) {
-    off_bytes = 2, code = val, lext = max(val - 60, 0);
-  } else if (c3) {
-    off_bytes = 3, code = c3_code, lext = max(c3_code - 60, 0);
-  } else {
-    off_bytes = 2, code = (val >> 3) & 7, lext = 0;
-  }
-  const int h = 1 + off_bytes + lext;
-  int acc_off = 0, acc_len = 0;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    if (k < off_bytes) acc_off |= s[1 + k] << (8 * k);
-    if (k < lext) acc_len |= s[1 + off_bytes + k] << (8 * k);
-  }
-  Tok t;
-  t.litcnt = tag == 3 ? ((val >> 1) & 3) + (c3 ? 0 : 1) : 0;
-  const int lit_len = code < 29 ? code + 1 : acc_len + 30;
-  const int len_c1 = code < 15 ? code + 4 : acc_len + 18;
-  const int len_c23 = code < 61 ? code + 4 : acc_len + 64;
-  t.rep = tag == 0 && c3;
-  t.lit = tag == 0 && !c3;
-  t.pend = tag == 3 && (!c3 || t.litcnt > 0);
-  t.imm = !t.lit && !t.pend;
-  t.sets = tag != 0;
-  t.clen = tag == 0 ? lit_len
-                    : (tag == 1 ? len_c1 : (tag == 3 && !c3 ? code + 4
-                                                            : len_c23));
-  t.off = tag == 1 ? ((acc_off << 2) | (val >> 4)) + 1
-                   : (tag == 3 && c3 ? (acc_off >> 3) + 65536 : acc_off + 64);
-  t.L = t.lit ? lit_len : (t.pend ? t.litcnt : 0);
-  const long long e = (long long)i + h;
-  t.e = (int)e;
-  t.nxt = e + t.L;
-  t.w = (unsigned)(t.lit ? lit_len : (t.imm ? t.clen : t.litcnt + t.clen));
-  t.complete = e <= n;
-  t.done = e + t.litcnt <= n;
-  unsigned pa = 0;
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    if (k < t.L) pa |= (unsigned)s[h + k] << (8 * k);
-  t.pa = (int)pa;
-  return t;
-}
 
 // What the transducer carries from token to token, as a scan element.
 struct Agg {
@@ -180,39 +120,13 @@ __device__ __forceinline__ void zero_fill(int* __restrict__ row, long long a,
   for (long long s = head + 4 * nv + tid; s < b; s += kThreads) row[s] = 0;
 }
 
-// The window's bytes [g0, g0 + nbytes) of comp into stage[shift ..), zeros
-// around them; 16-byte loads where a chunk lies wholly inside.
-__device__ __forceinline__ void stage_window(
-    const unsigned char* __restrict__ comp, long long n_comp, long long g0,
-    int nbytes, unsigned char* stage, int* shift_out) {
-  const unsigned long long addr =
-      reinterpret_cast<unsigned long long>(comp + g0);
-  const int shift = (int)(addr & 15);
-  const long long lo = g0, hi = min(g0 + nbytes, n_comp);
-  for (int c = threadIdx.x; c < kStage / 16; c += kThreads) {
-    const long long ga = g0 - shift + 16LL * c;  // comp index of the chunk
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (ga >= lo && ga + 16 <= hi) {
-      v = __ldg(reinterpret_cast<const uint4*>(comp + ga));
-    } else if (ga + 16 > lo && ga < hi) {
-      unsigned wd[4] = {0, 0, 0, 0};
-      for (int k = 0; k < 16; ++k) {
-        const long long g = ga + k;
-        if (g >= lo && g < hi) wd[k >> 2] |= (unsigned)comp[g] << (8 * (k & 3));
-      }
-      v = make_uint4(wd[0], wd[1], wd[2], wd[3]);
-    }
-    reinterpret_cast<uint4*>(stage)[c] = v;
-  }
-  *shift_out = shift;
-}
-
 // Eight blocks a SM (64 registers a thread; 22.7 KB of shared memory each)
 // keep 1056 lanes in flight.
 __global__ void __launch_bounds__(kThreads, 8)
 parse_kernel(const unsigned char* __restrict__ comp, long long n_comp,
              const int* __restrict__ lane_start,
-             const int* __restrict__ lane_len, int* __restrict__ recs,
+             const int* __restrict__ lane_len,
+             const int* __restrict__ lane_rep, int* __restrict__ recs,
              long long n_slots, int* __restrict__ counts) {
   __shared__ __align__(16) unsigned char stage[kStage];
   __shared__ unsigned short nxt[kWindow];
@@ -231,17 +145,22 @@ parse_kernel(const unsigned char* __restrict__ comp, long long n_comp,
   const int len = max(lane_len[lane], 0);
   const long long slot0 = start + lane;
   if (tid == 0) {
-    carry = Agg{0u, 0, 1, 0, 0};  // rep starts at 1 in every segment
+    // rep starts at 1 in every hinted segment; an unhinted lane enters
+    // with the offset its block's earlier tokens left.
+    carry = Agg{0u, 0, lane_rep ? lane_rep[lane] : 1, 0, 0};
     held = Held{0, 0, 0, 0};
   }
+  // An empty lane (derived plans hold some) runs no window, whose barriers
+  // would otherwise order these stores before the flush reads them.
+  __syncthreads();
 
   long long w0 = 0;  // lane offset of the window's first token
   while (w0 < len) {
     const int avail = (int)min((long long)kWindow, len - w0);
     int shift;
-    stage_window(comp, n_comp, start + w0,
-                 (int)min((long long)kWindow + kHalo, len - w0), stage,
-                 &shift);
+    stage_window<kStage, kThreads>(
+        comp, n_comp, start + w0,
+        (int)min((long long)kWindow + kHalo, len - w0), stage, &shift);
     __syncthreads();
     const unsigned char* win = stage + shift;
     for (int i = tid; i < avail; i += kThreads) {
@@ -370,17 +289,21 @@ parse_kernel(const unsigned char* __restrict__ comp, long long n_comp,
 }  // namespace
 
 // comp: [n_comp] uint8, the lanes' bytes; lane_start/lane_len: [lanes]
-// int32, lane_start the exclusive prefix sum of lane_len; recs: [7,
+// int32, the lanes in order and disjoint (lane_start the exclusive prefix
+// sum of lane_len where they tile comp); recs: [7,
 // n_slots] int32 (any contents: every slot of every lane is written),
-// n_slots >= the last lane's start + lanes; counts: [lanes] int32.
+// n_slots >= the last lane's start + lanes; counts: [lanes] int32;
+// lane_rep: [lanes] int32, each lane's incoming repeat offset, or null for
+// 1 in every lane.
 MINLZ_EXPORT int minlz_parse(const void* comp, long long n_comp,
                              const void* lane_start, const void* lane_len,
-                             int lanes, void* recs, long long n_slots,
-                             void* counts, void* stream) {
+                             const void* lane_rep, int lanes, void* recs,
+                             long long n_slots, void* counts, void* stream) {
   if (lanes > 0) {
     parse_kernel<<<lanes, kThreads, 0, (cudaStream_t)stream>>>(
         (const unsigned char*)comp, n_comp, (const int*)lane_start,
-        (const int*)lane_len, (int*)recs, n_slots, (int*)counts);
+        (const int*)lane_len, (const int*)lane_rep, (int*)recs, n_slots,
+        (int*)counts);
   }
   return (int)cudaGetLastError();
 }

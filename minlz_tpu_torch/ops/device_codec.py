@@ -12,7 +12,9 @@ clamp that the range executors take go to ``exec_chain.decode_blocks_chained``
 well-formed hint payload (version 1, range 0, a range above ``RANGE`` or one
 that is no multiple of the segment size) goes to
 ``exec_block.decode_blocks_whole``, where a copy may reach any earlier byte
-of its block.
+of its block.  A block without hints, as the format's other writers leave
+every block, takes the whole-block road from lanes derived on the device
+(``exec_block.decode_blocks_unhinted``).
 """
 
 from __future__ import annotations
@@ -90,7 +92,8 @@ class DeviceCodec:
     """Block codec on a torch device, for the stream layer.
 
     encode(data, level) -> (block, hint_payload) | None
-    decode(body, hint_payload, decoded_len) -> bytes
+    decode(body, hint_payload, decoded_len) -> bytes  (hint_payload None:
+        a block without parse hints)
 
     ``blocks_encoded`` / ``blocks_decoded`` count the blocks that went
     through the device match finder and the device decoder, on either
@@ -273,16 +276,21 @@ class DeviceCodec:
         return self.decode_batch([(body, hint_payload, decoded_len)])[0]
 
     def decode_batch(self, items):
-        """Decode many hinted blocks, one dispatch per group: blocks with a
-        usable range clamp by (segment size, range), every other block by
-        segment size on the whole-block road.  The whole list is one group
-        when written by one Writer.  items: list of (body, hint_payload,
-        decoded_len).  Returns a list of bytes, aligned with items."""
-        from .exec_block import decode_blocks_whole
+        """Decode many blocks, one dispatch per group: blocks with a usable
+        range clamp by (segment size, range), every other hinted block by
+        segment size on the whole-block road, and the blocks without hints
+        (hint_payload None) on the whole-block road from derived lanes.
+        The whole list is one group when written by one Writer.  items:
+        list of (body, hint_payload, decoded_len).  Returns a list of
+        bytes, aligned with items."""
+        from .exec_block import decode_blocks_unhinted, decode_blocks_whole
         from .exec_chain import decode_blocks_chained
 
         groups = {}
         for i, (body, hints, dlen) in enumerate(items):
+            if hints is None:
+                groups.setdefault((SEG, None), []).append((i, body, dlen))
+                continue
             with trace.span("codec.prepare"):
                 seg, rng, segs = self._prepare(body, hints, dlen)
             groups.setdefault((seg, rng), []).append((i, segs, dlen))
@@ -290,7 +298,9 @@ class DeviceCodec:
         for (seg, rng), entries in groups.items():
             segs = [e[1] for e in entries]
             wants = [e[2] for e in entries]
-            if rng:
+            if rng is None:
+                res = decode_blocks_unhinted(segs, wants, seg, self.device)
+            elif rng:
                 res = decode_blocks_chained(segs, wants, seg, rng,
                                             self.device)
             else:

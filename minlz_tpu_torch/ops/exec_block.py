@@ -20,6 +20,12 @@ A batch of blocks of any sizes decodes in one dispatch.  The TPU road's
 limits (512 lanes, 4 KiB segments, 1-2 MiB) do not carry over: the limit is
 the format's 8 MiB block.
 
+Blocks without parse hints, as every other MinLZ writer leaves them, take
+the same road from a plan derived on the device (``decode_unhinted``):
+``derive.derive_plan`` cuts each body into lanes at token starts and gives
+each lane its output span and incoming repeat offset, which the parse
+takes as ``lane_rep``.
+
 ``execute_blocks`` launches its CUDA kernel for CUDA tensors and runs the
 plain torch version for CPU tensors.
 """
@@ -28,12 +34,18 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, trace
+from .._device import resolve_device
+from ..minlz import CorruptError
+from . import derive
+from .device_codec import MAX_BLOCK, SEG
 from .exec_chain import (range_args, compact_records, execute_ranges_plain,
                          plan_batch, range_firsts, trim_blocks)
 from .parse import parse_planned
+from .parse_model import parse_segments_model
 
 KERNEL = "exec_block"
 TILE = 128 << 10    # csrc/resolve.cuh: kTile
@@ -113,13 +125,34 @@ def decode_planned_whole(plan, device="cuda", tensors: dict | None = None):
     if plan.rng:
         raise ValueError("not a whole-block plan")
     t = plan.tensors(device) if tensors is None else tensors
-    recs, counts = parse_planned(t["comp"], t["lane_start"], t["lane_len"])
+    return _decode_whole(t, plan.total_out)
+
+
+def _decode_whole(t, total_out: int):
+    """parse -> compact -> execute on whole-block plan tensors ``t``, each
+    lane from its ``t["lane_rep"]`` where the plan has one; the batch's
+    [total_out] uint8 output."""
+    recs, counts = _parse_lanes(t)
     crec, lane_out, total = compact_records(
         recs, counts, t["lane_start"], t["lane_len"], t["lane_lo"],
         t["lane_hi"])
     first = range_firsts(lane_out, total, t["range_lane"])
     return execute_blocks(crec, first, t["range_out"], t["range_span"],
-                          t["comp"], plan.total_out, spans_checked=True)
+                          t["comp"], total_out, spans_checked=True)
+
+
+def _parse_lanes(t):
+    """K1 on a plan's lanes.  A derived plan's lanes (``lane_rep``) take,
+    on CPU tensors, the token-level statement of K1
+    (``parse_model.parse_segments_model``): one step a token of the longest
+    lane, where the plain version steps a byte, and a derived lane is about
+    ``seg`` bytes however its block was written."""
+    rep = t.get("lane_rep")
+    if rep is not None and t["comp"].device.type == "cpu":
+        recs, counts, _ = parse_segments_model(
+            t["comp"], t["lane_start"], t["lane_len"], lane_rep=rep)
+        return recs, counts
+    return parse_planned(t["comp"], t["lane_start"], t["lane_len"], rep)
 
 
 def decode_blocks_whole(blocks_segs, out_totals, seg: int, device="cuda"):
@@ -138,3 +171,49 @@ def decode_block_whole(seg_bytes_list, out_total: int, seg: int,
     """Decode one block (a batch of one)."""
     return decode_blocks_whole([seg_bytes_list], [out_total], seg,
                                device)[0]
+
+
+def decode_unhinted(comp, body_off, out_len, total_out: int,
+                    seg: int = SEG):
+    """Decode a batch of unhinted blocks whose bodies are on the device:
+    derive (``derive.derive_plan``) -> parse -> compact -> execute, one
+    range per block.  Arguments as ``derive_plan``'s.  Returns (out
+    [total_out] uint8, bad [1] int32), both on comp's device: the decoded
+    blocks back to back, and the derivation's verdict, 0 where the batch is
+    sound (``derive.check`` reads it; where it is not, out is unspecified).
+    Nothing is read back from the device, and nothing derived is kept."""
+    with trace.span("decode.unhinted"):
+        trace.count("decode.unhinted_blocks", out_len.numel())
+        with trace.span("decode.derive", comp.device):
+            t = derive.derive_plan(comp, body_off, out_len, total_out, seg)
+        trace.count("decode.derived_lanes", t["lane_len"].numel())
+        return _decode_whole(t, total_out), t["bad"]
+
+
+def decode_blocks_unhinted(bodies, out_totals, seg: int = SEG,
+                           device="cuda"):
+    """Decode a batch of blocks without parse hints in one dispatch.
+    bodies: each block's bytes after its uvarint; out_totals: each one's
+    decoded length (the uvarint).  Host bytes in, host bytes out: one bytes
+    object per block.  Raises CorruptError where a block is unsound
+    (``derive.check``)."""
+    if not bodies:
+        return []
+    wants = [int(w) for w in out_totals]
+    if len(wants) != len(bodies) or not all(
+            0 < w <= MAX_BLOCK for w in wants):
+        raise CorruptError(f"unhinted block: a decoded length outside "
+                           f"1..{MAX_BLOCK}")
+    dev = resolve_device(device)
+    lens = np.array([len(b) for b in bodies], np.int64)
+    body_off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    comp = np.frombuffer(b"".join(bytes(b) for b in bodies) or b"\x00",
+                         np.uint8)
+    out, bad = decode_unhinted(
+        torch.from_numpy(comp.copy()).to(dev),
+        torch.from_numpy(body_off).to(dev),
+        torch.tensor(wants, dtype=torch.int32).to(dev), sum(wants), seg)
+    host = out.cpu().numpy()
+    derive.check(bad)
+    ends = np.cumsum(wants)
+    return [host[e - w:e].tobytes() for e, w in zip(ends, wants)]

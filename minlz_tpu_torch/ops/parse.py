@@ -9,6 +9,11 @@ at most len + 1 records (one per byte row plus its flush row), so that slot
 layout always has room.  Unused slots hold zeros.  The records are the
 non-zero rows (kind > 0) of the TPU parse, in row order.
 
+Every lane starts at a token with the repeat offset 1, the format's
+initial value, as a hinted segment does; ``lane_rep`` ([lanes] int32, the
+offset each lane enters with) serves lanes cut out of a block at token
+starts where the hints do not say so (``ops/derive.py``).
+
 ``parse_segments`` launches the CUDA kernel ``csrc/parse.cu`` for CUDA
 tensors and runs ``parse_segments_plain`` for CPU tensors;
 ``parse_planned`` does the same without the checks that read back from the
@@ -29,11 +34,16 @@ N_FIELDS = 7
 KERNEL = "parse"
 
 
-def _check(comp, lane_start, lane_len):
+def _check(comp, lane_start, lane_len, lane_rep=None):
     """Types, shapes and devices: no read back from the device."""
     if comp.dtype != torch.uint8 or comp.dim() != 1:
         raise ValueError("comp must be a 1-D uint8 tensor")
-    for name, t in (("lane_start", lane_start), ("lane_len", lane_len)):
+    lanes = [("lane_start", lane_start), ("lane_len", lane_len)]
+    if lane_rep is not None:
+        lanes.append(("lane_rep", lane_rep))
+        if lane_rep.shape != lane_len.shape:
+            raise ValueError("lane_rep and lane_len differ in shape")
+    for name, t in lanes:
         if t.dtype != torch.int32 or t.dim() != 1:
             raise ValueError(f"{name} must be a 1-D int32 tensor")
         if t.device != comp.device:
@@ -59,27 +69,29 @@ def n_slots(comp_len: int, lanes: int) -> int:
     return comp_len + lanes
 
 
-def parse_segments(comp, lane_start, lane_len):
+def parse_segments(comp, lane_start, lane_len, lane_rep=None):
     """Parse every lane.  comp: [n] uint8, the lanes' compressed bytes back
     to back; lane_len: [lanes] int32; lane_start: [lanes] int32, the
-    exclusive prefix sum of lane_len.  Returns (recs [7, n + lanes] int32,
-    counts [lanes] int32)."""
-    _check(comp, lane_start, lane_len)
+    exclusive prefix sum of lane_len; lane_rep: None (1 in every lane) or
+    [lanes] int32, each lane's incoming repeat offset.  Returns (recs [7,
+    n + lanes] int32, counts [lanes] int32)."""
+    _check(comp, lane_start, lane_len, lane_rep)
     _check_tiling(comp, lane_start, lane_len)
-    return _parse(comp, lane_start, lane_len)
+    return _parse(comp, lane_start, lane_len, lane_rep)
 
 
-def parse_planned(comp, lane_start, lane_len):
-    """``parse_segments`` on lane arrays that tile comp by construction, as
-    ``exec_chain.plan_batch``'s do: the tiling is not checked, so nothing
-    is read back from the device."""
-    _check(comp, lane_start, lane_len)
-    return _parse(comp, lane_start, lane_len)
+def parse_planned(comp, lane_start, lane_len, lane_rep=None):
+    """``parse_segments`` on lane arrays that are in order and disjoint
+    inside comp by construction, as ``exec_chain.plan_batch``'s and
+    ``derive.derive_plan``'s are: nothing is checked that would read back
+    from the device."""
+    _check(comp, lane_start, lane_len, lane_rep)
+    return _parse(comp, lane_start, lane_len, lane_rep)
 
 
-def _parse(comp, lane_start, lane_len):
+def _parse(comp, lane_start, lane_len, lane_rep=None):
     if comp.device.type == "cpu":
-        return parse_segments_plain(comp, lane_start, lane_len)
+        return parse_segments_plain(comp, lane_start, lane_len, lane_rep)
     if comp.device.type != "cuda":
         raise ValueError(f"no parse kernel for device {comp.device}")
     lanes = lane_len.numel()
@@ -89,11 +101,12 @@ def _parse(comp, lane_start, lane_len):
     recs = alloc((N_FIELDS, slots), dtype=torch.int32, device=comp.device)
     counts = torch.empty(lanes, dtype=torch.int32, device=comp.device)
     launch_parse(comp.contiguous(), lane_start.contiguous(),
-                 lane_len.contiguous(), recs, counts)
+                 lane_len.contiguous(), recs, counts,
+                 None if lane_rep is None else lane_rep.contiguous())
     return recs, counts
 
 
-def launch_parse(comp, lane_start, lane_len, recs, counts):
+def launch_parse(comp, lane_start, lane_len, recs, counts, lane_rep=None):
     """The bare launch of the parse kernel: checked, contiguous CUDA
     tensors in, ``recs`` [7, n + lanes] and ``counts`` [lanes] written in
     place, every slot of every lane (unused ones with zeros).  No check, no
@@ -101,17 +114,18 @@ def launch_parse(comp, lane_start, lane_len, recs, counts):
     lib = _build.load()
     _build.check(lib, lib.minlz_parse(
         comp.data_ptr(), ctypes.c_longlong(comp.numel()),
-        lane_start.data_ptr(), lane_len.data_ptr(), lane_len.numel(),
+        lane_start.data_ptr(), lane_len.data_ptr(),
+        None if lane_rep is None else lane_rep.data_ptr(), lane_len.numel(),
         recs.data_ptr(), ctypes.c_longlong(recs.shape[1]), counts.data_ptr(),
         _build.stream_of(comp)))
     _build.count_launch(KERNEL)
 
 
-def parse_segments_plain(comp, lane_start, lane_len):
+def parse_segments_plain(comp, lane_start, lane_len, lane_rep=None):
     """Plain torch version (any device): a row loop of
     ``transducer.parse_step`` vectorised over lanes, then a lane-major
     gather of the rows with kind > 0 into the dense slot layout."""
-    _check(comp, lane_start, lane_len)
+    _check(comp, lane_start, lane_len, lane_rep)
     _check_tiling(comp, lane_start, lane_len)
     dev = comp.device
     lanes = lane_len.numel()
@@ -130,6 +144,8 @@ def parse_segments_plain(comp, lane_start, lane_len):
     # other row goes through parse_step exactly as in lockstep.
     row = torch.zeros(lanes, dtype=torch.int32, device=dev)
     st = init_state(lanes, dev)
+    if lane_rep is not None:
+        st["rep"] = lane_rep.to(device=dev, dtype=torch.int32).clone()
     emits = [[] for _ in range(N_FIELDS)]
     while bool((row <= lens).any()):
         active = row < lens

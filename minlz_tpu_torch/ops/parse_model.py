@@ -6,9 +6,12 @@ it finds the lane's tokens and computes each token's records at once.  This
 module states that algorithm in torch ops, with the window size as an
 argument, so that small inputs cross many windows; the tests hold it equal
 to ``parse_segments_plain`` on every field, and the card run reads its counts
-(tokens, windows) beside the kernel's time.  Nothing on a decode path calls
-it; ``decode_kernel.scan_layout`` uses its token table (``decode``) and
-``token_events`` to put K1's records at the rows of the JAX scan.
+(tokens, windows) beside the kernel's time.  One decode path calls it: the
+road for blocks without parse hints parses its derived lanes with it on CPU
+tensors (``exec_block.decode_unhinted``), a step a token where the plain
+version steps a byte; ``decode_kernel.scan_layout`` uses its token table
+(``decode``) and ``token_events`` to put K1's records at the rows of the JAX
+scan, and the derivation (``ops/derive.py``) its token table.
 
 1. **Table.**  For every byte offset i of a lane, the token that would start
    there: its kind, header length h (1-7 bytes: a Copy3's length-extension
@@ -200,11 +203,13 @@ def _last_set(flag, value, first_of_seg):
     return torch.where(found, value[excl.clamp(min=0)], 0), found
 
 
-def parse_segments_model(comp, lane_start, lane_len, window: int = WINDOW):
+def parse_segments_model(comp, lane_start, lane_len, window: int = WINDOW,
+                         lane_rep=None):
     """The arguments and result of ``parse.parse_segments`` (recs [7, n +
     lanes] int32, counts [lanes] int32), computed token by token, window by
-    window.  Also returns info: ``tokens`` (chain hops over all lanes),
-    ``windows`` (over all lanes), ``max_tokens`` (of one window)."""
+    window; ``lane_rep`` as there.  Also returns info: ``tokens`` (chain
+    hops over all lanes), ``windows`` (over all lanes), ``max_tokens`` (of
+    one window)."""
     if window <= 0:
         raise ValueError("window must be positive")
     dev = comp.device
@@ -269,7 +274,8 @@ def parse_segments_model(comp, lane_start, lane_len, window: int = WINDOW):
     pa = torch.zeros(n, dtype=_I64, device=dev)
     c_d = torch.zeros(lanes, dtype=_I64, device=dev)
     c_n = torch.zeros(lanes, dtype=_I64, device=dev)
-    c_rep = torch.ones(lanes, dtype=_I64, device=dev)
+    c_rep = (torch.ones(lanes, dtype=_I64, device=dev) if lane_rep is None
+             else lane_rep.to(device=dev, dtype=_I64).clone())
     c_pa = torch.zeros(lanes, dtype=_I64, device=dev)
     last_of_seg = torch.ones(n, dtype=torch.bool, device=dev)
     last_of_seg[:-1] = new_seg[1:]

@@ -7,12 +7,18 @@ skippable/user chunk dispatch, Skip without decode, and a ReadSeeker using the
 
 ``device`` is a torch device or a string such as "cuda" or "cpu"; ``None``
 decodes every block on the host.  The JAX package's bools also hold: True
-is "cuda", False the host.  A device decode that fails raises: it is
-not replaced by a host decode.  Only a block whose parse hints are corrupt
-(CorruptError) is decoded on the host, since hints are advisory; the
-reader's ``hint_fallbacks`` counts those blocks, and the codec's
-``blocks_decoded`` count shows which blocks the device took.  A device
-output that fails the CRC its chunk carries raises, as a host output does.
+is "cuda", False the host.  With a device every compressed block decodes
+there, with parse hints or without (as the format's other writers leave
+every block: its lanes are then derived on the device).  A device decode
+that fails raises: it is not replaced by a host decode.  Only a
+CorruptError sends a block to the host: corrupt parse hints, which are
+advisory, or a block without hints that the device found unsound, which
+the host decoder then names.  The reader's ``hint_fallbacks`` counts the
+first, ``host_unhinted_blocks`` every compressed block without hints that
+the reader decoded on the host (every such block on the host route), and
+the codec's ``blocks_decoded`` count shows which blocks the device took.
+A device output that fails the CRC its chunk carries raises, as a host
+output does.
 """
 
 from __future__ import annotations
@@ -93,6 +99,8 @@ class Reader:
         self._pending_hints = None
         # Blocks whose hints were set aside for the host decoder.
         self.hint_fallbacks = 0
+        # Compressed blocks without hints decoded on the host.
+        self.host_unhinted_blocks = 0
         self._decoded = b""
         self._decoded_pos = 0
         self._block_start = 0  # uncompressed offset of current window start
@@ -219,8 +227,10 @@ class Reader:
 
             def drain_one():
                 nonlocal total
-                fut = pending.pop(0)
+                fut, unhinted = pending.pop(0)
                 data = fut.result()
+                if unhinted:
+                    self._host_unhinted(1)
                 dst.write(data)
                 total += len(data)
                 self._uncompressed_seen += len(data)
@@ -245,9 +255,11 @@ class Reader:
                     self._seen_data = True
                     # Threads run the stateless payload decode only; reader
                     # bookkeeping happens in drain order.
-                    pending.append(
-                        pool.submit(self._decode_payload, ctype, payload)
-                    )
+                    pending.append((
+                        pool.submit(self._decode_payload, ctype, payload),
+                        ctype != CHUNK_TYPE_UNCOMPRESSED_DATA
+                        and self._has_tokens(payload[4:]),
+                    ))
                     while len(pending) > 2 * concurrency:
                         drain_one()
                 else:
@@ -262,11 +274,13 @@ class Reader:
         return total
 
     def _decode_concurrent_device(self, dst, max_batch: int = 8) -> int:
-        """Batched device drain: collect consecutive hinted data chunks and
-        decode them in ONE dispatch per batch (reference
-        DecodeConcurrent's goroutine fan-out, reader.go:575-668, realized
-        as multi-block kernel batching).  Corrupt hints send the batch to
-        the host decoder; any other device failure raises."""
+        """Batched device drain: collect consecutive compressed data chunks,
+        with parse hints or without, and decode them in ONE dispatch per
+        batch (reference DecodeConcurrent's goroutine fan-out,
+        reader.go:575-668, realized as multi-block kernel batching).  A
+        CorruptError (corrupt hints, or a block without hints the device
+        found unsound) sends the batch to the host decoder; any other
+        device failure raises."""
         from ..minlz import CHUNK_TYPE_PARSE_HINT
 
         total = 0
@@ -291,8 +305,10 @@ class Reader:
                     outs = self._device_codec.decode_batch(items)
                 except CorruptError:
                     # Hints are advisory: the block itself may still be
-                    # sound.
-                    self.hint_fallbacks += len(batch)
+                    # sound; the host decoder names what is not.
+                    hinted = sum(b[5] is not None for b in batch)
+                    self.hint_fallbacks += hinted
+                    self._host_unhinted(len(batch) - hinted)
                     outs = [
                         blockapi.decode(b"\x00" + b[2]) for b in batch
                     ]
@@ -320,7 +336,7 @@ class Reader:
             if ctype in (
                 CHUNK_TYPE_MINLZ_COMPRESSED,
                 CHUNK_TYPE_MINLZ_COMPRESSED_CRC,
-            ) and hints is not None:
+            ):
                 payload = self._read_exact(clen)
                 self._pending_hints = None
                 self._seen_data = True
@@ -347,17 +363,8 @@ class Reader:
                                 payload)
             if batchable:
                 continue
-            if (
-                (
-                    ctype
-                    in (
-                        CHUNK_TYPE_MINLZ_COMPRESSED,
-                        CHUNK_TYPE_MINLZ_COMPRESSED_CRC,
-                    )
-                    and hints is None
-                )
-                or ctype == CHUNK_TYPE_UNCOMPRESSED_DATA
-                or (ctype == CHUNK_TYPE_LEGACY_COMPRESSED and self._fallback)
+            if ctype == CHUNK_TYPE_UNCOMPRESSED_DATA or (
+                ctype == CHUNK_TYPE_LEGACY_COMPRESSED and self._fallback
             ):
                 flush()
                 payload = self._read_exact(clen)
@@ -580,7 +587,7 @@ class Reader:
         # block decoder.
         hints = self._pending_hints
         self._pending_hints = None
-        if self._device_codec is not None and hints is not None:
+        if self._device_codec is not None:
             lit_only, want, pos = parse_header(b"\x00" + body)
             if not lit_only and want > 0:
                 try:
@@ -589,11 +596,33 @@ class Reader:
                     )
                 except CorruptError:
                     # Hints are advisory: corrupt hints leave the block to
-                    # the host decoder.  Any other device failure raises.
-                    self.hint_fallbacks += 1
+                    # the host decoder, as does a block without hints that
+                    # the device found unsound: the host decoder names what
+                    # is wrong.  Any other device failure raises.
+                    if hints is not None:
+                        self.hint_fallbacks += 1
+                    else:
+                        self._host_unhinted(1)
+        elif self._has_tokens(body):  # the host route keeps no hints
+            self._host_unhinted(1)
         if self._backend is not None:
             return self._backend(b"\x00" + body)
         return blockapi.decode(b"\x00" + body)
+
+    def _host_unhinted(self, n: int) -> None:
+        """Count ``n`` compressed blocks without hints decoded on the
+        host."""
+        self.host_unhinted_blocks += n
+        trace.count("reader.host_unhinted_blocks", n)
+
+    @staticmethod
+    def _has_tokens(body: bytes) -> bool:
+        """A compressed chunk's body that holds tokens: its uvarint is not
+        0 (a literal-only block)."""
+        try:
+            return read_uvarint(body, 0)[0] > 0
+        except ValueError:
+            return False
 
     @staticmethod
     def _block_decoded_len(body: bytes) -> int:

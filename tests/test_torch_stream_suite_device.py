@@ -18,8 +18,9 @@ import io
 
 import numpy as np
 import pytest
+import torch
 
-from minlz_tpu_torch import minlz
+from minlz_tpu_torch import minlz, trace
 from minlz_tpu_torch.ops.device_codec import get_device_codec
 from minlz_tpu_torch.stream import Index, Reader, ReadSeeker, Writer
 
@@ -175,8 +176,9 @@ def test_writer_device_emit_batched_roundtrip(twain, codec):
 
 def test_skip_leaves_no_hints_to_the_next_block(twain, codec):
     """A block that skip passes over takes its parse hints with it: the
-    next block, written without hints, decodes on the host, and no device
-    decode is tried with the skipped block's hints."""
+    next block, written without hints, takes the device's road for blocks
+    without hints, and no device decode is tried with the skipped block's
+    hints."""
     data = (twain * 2)[:24 * KB]
     raw = write(data, block_size=16 * KB, add_index=False)
     hint = [c for c in chunks(raw) if c[1] == minlz.CHUNK_TYPE_PARSE_HINT]
@@ -184,7 +186,12 @@ def test_skip_leaves_no_hints_to_the_next_block(twain, codec):
     pos, _, clen = hint[1]
     raw = raw[:pos] + raw[pos + 4 + clen:]
     r = Reader(io.BytesIO(raw), device=DEV)
-    with Decoded(codec) as d:
+    trace.reset()
+    with Decoded(codec) as d, torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
         r.skip(16 * KB + 100)
         assert r.read(1000) == data[16 * KB + 100:16 * KB + 1100]
-    assert d.n == 0 and r.hint_fallbacks == 0
+    unhinted = trace.snapshot()["counters"].get("decode.unhinted_blocks")
+    trace.reset()
+    assert d.n == 1 and unhinted == 1
+    assert r.hint_fallbacks == 0 and r.host_unhinted_blocks == 0
